@@ -1,0 +1,10 @@
+"""PyTorch/CUDA port of the Andes serving stack.
+
+Mirrors ``src/repro``'s layout (``configs``, ``core``, ``kernels``,
+``models``, ``serving``) so each module's counterpart is easy to find.
+The host modules (configs, scheduler, QoE, pricing, latency model) are
+copies of the reference's framework-free code; the model, cache, kernels
+and engine are rewritten for PyTorch, with hand-written CUDA kernels for
+attention (``kernels/csrc``). Entry points run on ``device="cuda"``
+unless the caller asks for the CPU.
+"""

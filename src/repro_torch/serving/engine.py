@@ -1,0 +1,1001 @@
+"""Continuous-batching engine over the port's PyTorch model.
+
+The counterpart of ``src/repro/serving/engine.py`` (whose module
+docstring explains the design in full): the same Scheduler / FluidQoE /
+Request machinery drives a real model — each iteration schedules,
+preempts (swap to host memory or recompute), admits through bucketed,
+batched prefill (chunked when ``prefill_chunk`` is set), and decodes
+greedily over every occupied slot, one step or a certified multi-step
+block at a time. The virtual clock advances by the LatencyModel, so with
+EOS off the emitted timestamps depend only on lengths and batch
+composition and match the reference engine's exactly.
+
+What differs from the reference, and why:
+
+* PyTorch runs eagerly, so the jitted entry points are the model's
+  methods themselves, and the persistent decode block is j device steps
+  with argmax feedback and one host sync (``Model.decode_persistent``).
+* Caches are updated in place; JAX's out-of-range rules are spelled out
+  where the reference leans on them (dropped scatters for the sentinel
+  slot / page, clamped gathers and writes — models/cache.py).
+* Speculative decoding (``spec_k > 0``) is not ported yet and raises;
+  the observer hook call sites stay (``set_observer``), composition of
+  several observers comes with the server slice.
+
+On a CUDA device the model's attention runs on the hand-written kernels
+(kernels/csrc); on the CPU on their plain versions.
+"""
+from __future__ import annotations
+
+import bisect
+import dataclasses
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.latency_model import LatencyModel
+from repro_torch.core.qoe import FluidQoE
+from repro_torch.core.request import Request, ReqState
+from repro_torch.core.scheduler import Scheduler
+from repro_torch.device import resolve_device
+from repro_torch.models import cache as cache_lib
+from repro_torch.models.model import Model
+from repro_torch.serving.kv_manager import KVSlotManager
+from repro_torch.serving.simulator import SimResult
+
+
+@dataclasses.dataclass(frozen=True)
+class HotpathConfig:
+    """Engine hot-path switches (all lossless and ON by default, as in the
+    reference; ``HotpathConfig.baseline()`` is the eager baseline)."""
+    prefill_buckets: bool = True    # bucketed/batched prefill
+    bucket_min: int = 16            # smallest prompt-length bucket
+    fused_sampling: bool = True     # on-device argmax
+    multi_step: int = 8             # max decode iters per dispatch (1 = off)
+    persistent: bool = True         # unquantized j-step device blocks
+                                    # instead of the power-of-two grid
+    wall_multi_step: bool = True    # let wall-clock engines run blocks
+
+    @staticmethod
+    def baseline() -> "HotpathConfig":
+        """Eager exact-length batch-1 prefill, full-logit host argmax, one
+        decode iteration per dispatch."""
+        return HotpathConfig(prefill_buckets=False, fused_sampling=False,
+                             multi_step=1)
+
+
+def _slot_axis(key: str) -> int:
+    return 0 if key == "length" else 1   # length (B,) vs (L, B, ...)
+
+
+def _write_slot(cache, src, slot: int):
+    """Insert batch-1 `src` rows into `cache` at slot `slot` (in place)."""
+    for key, s in src.items():
+        c = cache[key]
+        if _slot_axis(key) == 0:
+            c[slot] = s[0].to(device=c.device, dtype=c.dtype)
+        else:
+            c[:, slot] = s[:, 0].to(device=c.device, dtype=c.dtype)
+    return cache
+
+
+def _write_slots(cache, src, slots: np.ndarray):
+    """Insert an N-row `src` into `cache` at slots `slots` (host ints) —
+    one scatter per leaf. Rows whose slot is the sentinel num_slots (row
+    bucket padding) are dropped, as the reference's mode="drop"."""
+    n_slots = cache["length"].shape[0]
+    rows = np.nonzero(slots < n_slots)[0]
+    if not len(rows):
+        return cache
+    dev = cache["length"].device
+    dst = torch.as_tensor(slots[rows], dtype=torch.long).to(dev)
+    sel = torch.as_tensor(rows, dtype=torch.long).to(dev)
+    for key, s in src.items():
+        c = cache[key]
+        if _slot_axis(key) == 0:
+            c[dst] = s[sel].to(c.dtype)
+        else:
+            c[:, dst] = s[:, sel].to(c.dtype)
+    return cache
+
+
+def _read_slot(cache, slot: int):
+    """Slot `slot`'s leaves (batch axis kept, length 1), copied to host."""
+    out = {}
+    for key, c in cache.items():
+        if key == "block_tables":
+            continue
+        ax = _slot_axis(key)
+        out[key] = c.narrow(ax, slot, 1).to("cpu", copy=True)
+    return out
+
+
+def _paged_commit(cache, bt_rows, starts, k_seg, v_seg, counts):
+    """Scatter contiguous k/v token segments into the page pool (the paged
+    image of `_write_slots`): row i holds counts[i] tokens landing at
+    absolute positions starts[i].. through the pages bt_rows[i] names.
+    Sentinel-routed positions drop."""
+    cache_lib.paged_write_tokens(cache["k"], bt_rows, starts, k_seg, counts)
+    cache_lib.paged_write_tokens(cache["v"], bt_rows, starts, v_seg, counts)
+    return cache
+
+
+def _paged_read_row(cache, table_row, slot: int, *, max_seq: int):
+    """Gather one slot's pages back into a contiguous host row — same leaf
+    shapes and bytes as `_read_slot` on a contiguous cache."""
+    return {
+        "length": cache["length"][slot:slot + 1].to("cpu", copy=True),
+        "k": cache_lib.paged_gather_rows(
+            cache["k"], table_row, max_seq).to("cpu", copy=True),
+        "v": cache_lib.paged_gather_rows(
+            cache["v"], table_row, max_seq).to("cpu", copy=True),
+    }
+
+
+class BucketedPrefill:
+    """Shape-bucketed prefill front-end for one model.
+
+    Pads a group of prompts (all mapping to the same length bucket — the
+    caller groups) to (row_bucket, len_bucket), runs one ``Model.prefill``
+    with per-row ``lengths`` masking, takes the first-token argmax on the
+    device, and returns (first_ids (N,), cache rows) for one fused
+    `_write_slots` scatter. `shapes_seen` records the padded shapes run."""
+
+    def __init__(self, model: Model, cache_seq: int, cache_dtype, *,
+                 max_seq: int, bucket_min: int = 16):
+        self.model = model
+        self.cache_seq = cache_seq
+        self.cache_dtype = cache_dtype
+        # geometric (x2) grid from bucket_min; the terminal bucket is
+        # clamped to the physical cache depth and still covers max_seq
+        self.buckets: List[int] = []
+        b = max(2, int(bucket_min))
+        while b < max_seq and b < cache_seq:
+            self.buckets.append(b)
+            b *= 2
+        self.buckets.append(min(b, cache_seq))
+        self.shapes_seen = set()        # (rows, len_bucket) signatures
+        self.on_compile = None          # optional fn(key) on a new shape
+
+    def note_shape(self, key) -> None:
+        if key not in self.shapes_seen:
+            self.shapes_seen.add(key)
+            if self.on_compile is not None:
+                self.on_compile(key)
+
+    def bucket(self, n: int) -> int:
+        for b in self.buckets:
+            if n <= b:
+                return b
+        return self.buckets[-1]
+
+    @staticmethod
+    def row_bucket(n: int) -> int:
+        b = 1
+        while b < n:
+            b *= 2
+        return b
+
+    def _call(self, params, tokens, lengths):
+        cache = self.model.init_cache(tokens.shape[0], self.cache_seq,
+                                      dtype=self.cache_dtype)
+        batch = {"tokens": tokens, "lengths": lengths}
+        logits, cache = self.model.prefill(params, batch, cache)
+        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+    def prefill_into(self, params, cache, slots, toks_list, *,
+                     need_first=True, write=None):
+        """Grouped flush: prefill every (slot, tokens) pair and scatter the
+        rows into `cache` — one padded multi-row call and one fused write
+        per bucket group. Returns (cache', first_ids (N,) int32 aligned
+        with the inputs, host sync rounds, bucket groups dispatched).
+        `write` overrides the slot-row scatter (the physically paged
+        engine's page-pool committer; rows map to slots through the same
+        padded id array, sentinel = num_slots)."""
+        if write is None:
+            write = _write_slots
+        groups: dict = {}
+        for i, t in enumerate(toks_list):
+            groups.setdefault(self.bucket(len(t)), []).append(i)
+        first_out = np.zeros(len(toks_list), np.int32)
+        oob = cache["length"].shape[0]          # row-pad scatter sentinel
+        syncs = 0
+        for bucket in sorted(groups):
+            idxs = groups[bucket]
+            first, src = self.run(params, [toks_list[i] for i in idxs])
+            rows = src["length"].shape[0]
+            pad = np.full((rows,), oob, np.int32)
+            pad[: len(idxs)] = [slots[i] for i in idxs]
+            cache = write(cache, src, pad)
+            if need_first:
+                first = first.cpu().numpy()
+                syncs += 1
+                for j, i in enumerate(idxs):
+                    first_out[i] = first[j]
+        return cache, first_out, syncs, len(groups)
+
+    def run(self, params, toks_list):
+        """Prefill one same-bucket group. toks_list: per-request token
+        arrays; returns (first_ids (rows,) on the device, padded rows)."""
+        rows = self.row_bucket(len(toks_list))
+        seq = self.bucket(max(len(t) for t in toks_list))
+        tokens = np.zeros((rows, seq), np.int32)
+        lengths = np.zeros((rows,), np.int32)
+        for i, t in enumerate(toks_list):
+            tokens[i, : len(t)] = t
+            lengths[i] = len(t)
+        self.note_shape((rows, seq))
+        dev = self.model.device
+        return self._call(params, torch.as_tensor(tokens).to(dev),
+                          torch.as_tensor(lengths).to(dev))
+
+
+@dataclasses.dataclass
+class _StagedPrefill:
+    """One admission whose host bookkeeping is done but whose device work
+    (prefill + slot write + first-token id) is deferred to the batched
+    flush. `emit_t` is the already-ticked first-token timestamp (None for
+    recompute resumes, which emit nothing at prefill)."""
+    req: Request
+    slot: int
+    toks: np.ndarray
+    emit_t: Optional[float]
+
+
+class ServingEngine:
+    """Continuous-batching engine over the port's model.
+
+    Incremental API (identical to the reference's):
+      submit(req)  enqueue an arrival
+      step()       one scheduling+decode iteration; False when out of work
+      has_work     pending or live requests remain
+      result()     SimResult over every request ever submitted
+    Batch API: run(workload) submits all and steps to completion.
+    """
+
+    def __init__(
+        self,
+        model: Model,
+        params,
+        scheduler: Scheduler,
+        lat: LatencyModel,
+        *,
+        num_slots: int = 8,
+        max_seq: int = 256,
+        capacity_tokens: Optional[int] = None,
+        preemption_mode: str = "swap",
+        clock: str = "virtual",
+        eos_id: int = -1,
+        cache_dtype=torch.float32,
+        spec_k: int = 0,
+        hotpath: Optional[HotpathConfig] = None,
+        prefill_chunk: int = 0,
+        page_size: Optional[int] = None,
+        physical_pages: Optional[bool] = None,
+        device="cuda",
+    ):
+        if resolve_device(device).type != model.device.type:
+            raise ValueError(f"engine device {device!r} differs from the "
+                             f"model's ({model.device})")
+        if spec_k:
+            raise NotImplementedError(
+                "speculative decoding (spec_k > 0) is not ported yet")
+        self.model = model
+        self.params = params
+        self.sched = scheduler
+        self.lat = lat
+        self.preemption_mode = preemption_mode
+        self.clock = clock
+        self.eos_id = eos_id
+        self.hotpath = hotpath if hotpath is not None else HotpathConfig()
+        self._observer = None
+        self.obs = None
+        self.max_seq = max_seq
+        self._num_slots = num_slots
+        self._capacity_tokens = capacity_tokens
+        self._rollback_ok = cache_lib.supports_length_rollback(model.cfg)
+        self.spec_k = 0
+        self._cache_seq = max_seq
+
+        # ---- physical paging: a real device page pool -------------------
+        paged = page_size is not None and 0 < int(page_size) < max_seq
+        if physical_pages is None:
+            physical_pages = paged and model.supports_physical_paging()
+        elif physical_pages:
+            if not paged:
+                raise ValueError(
+                    "physical_pages=True requires a paged engine "
+                    "(0 < page_size < max_seq)")
+            if not model.supports_physical_paging():
+                raise ValueError(
+                    f"model kind {model.cfg.kind!r} does not support a "
+                    "physically paged KV cache")
+        self.physical_pages = bool(physical_pages)
+        if self.physical_pages:
+            # the physical pool IS the admission capacity: every page id
+            # the manager hands out names a real device row
+            cap_tokens = capacity_tokens or num_slots * max_seq
+            self._pool_pages = -(-cap_tokens // page_size)
+            self._max_pages = -(-self._cache_seq // page_size)
+            self.cache = model.init_paged_cache(
+                num_slots, self._pool_pages, page_size, self._cache_seq,
+                dtype=cache_dtype)
+        else:
+            self._pool_pages = 0
+            self._max_pages = 0
+            self.cache = model.init_cache(num_slots, self._cache_seq,
+                                          dtype=cache_dtype)
+        # the device entry points (the reference jits these)
+        self._decode = model.decode_step
+        self._decode_tok = model.decode_tokens
+        self._decode_multi = model.decode_multi
+        self._decode_persist = model.decode_persistent
+        self._prefill = BucketedPrefill(
+            model, self._cache_seq, cache_dtype, max_seq=max_seq,
+            bucket_min=self.hotpath.bucket_min)
+        # MoE capacity depends on the padded token count, so MoE keeps the
+        # eager exact-length path (no MoE model is ported yet)
+        self._prefill_bucketable = model.cfg.kind != "moe"
+        # ---- chunked prefill + paged KV accounting ----------------------
+        self.prefill_chunk = int(prefill_chunk)
+        self._page_size = page_size
+        if self.prefill_chunk:
+            if not (self.hotpath.prefill_buckets
+                    and self._prefill_bucketable):
+                raise ValueError(
+                    "chunked prefill requires the bucketed prefill path "
+                    "(hotpath.prefill_buckets=True, non-MoE model)")
+        self.reset()
+        if self.kv.paged and not self.sched.cfg.page_size:
+            self.sched.cfg.page_size = self.kv.page_size
+        if self.prefill_chunk and not self.sched.cfg.prefill_chunk:
+            self.sched.cfg.prefill_chunk = self.prefill_chunk
+
+    # ------------------------------------------------------------------ state
+    def reset(self) -> None:
+        """Clear all serving state (the device cache is reused; live slots
+        are always re-written at prefill/swap-in time)."""
+        if getattr(self, "kv", None) is None:
+            self.kv = KVSlotManager(self._num_slots, self.max_seq,
+                                    self._capacity_tokens,
+                                    page_size=self._page_size)
+        else:
+            self.kv.reset()
+        self.sched.reset()
+        self.fluid = FluidQoE()
+        if hasattr(self.lat, "reset"):
+            self.lat.reset()
+        self.now = 0.0
+        self.slot_req: Dict[int, Request] = {}
+        self.preemptions = 0
+        self.total_tokens = 0
+        self.iterations = 0
+        self.batch_sizes: List[int] = []
+        self._pending: List[Request] = []    # sorted arrivals; admitted
+        self._pending_pos = 0                #   prefix tracked by cursor
+        self.live: List[Request] = []
+        self.seen: List[Request] = []        # submit order
+        self.stuck = False
+        self.host_syncs = 0                  # device→host transfer rounds
+        self.dispatches = 0                  # model-forward launches
+        self.multi_step_blocks = 0
+        self.multi_step_iters = 0
+        self.persistent_blocks = 0
+        self.persistent_iters = 0
+        self.page_gathers = 0                # pool→contiguous row gathers
+        self.page_scatters = 0               # contiguous→pool scatters
+        self.page_gather_bytes = 0
+        self._kv_version_seen = -1
+        self._bt_host = None
+        self._wall0 = time.monotonic()
+
+    # ------------------------------------------------------------ observers
+    @property
+    def observer(self):
+        return self._observer
+
+    @observer.setter
+    def observer(self, obs) -> None:
+        self._observer = obs
+        self.obs = obs
+        self.sched.obs = obs
+        self._prefill.on_compile = (
+            (lambda key: obs.jit_compile(self.now, key))
+            if obs is not None else None)
+
+    def set_observer(self, obs) -> None:
+        self.observer = obs
+
+    def _sync(self, n: int = 1) -> None:
+        if n:
+            self.host_syncs += n
+            if self.obs is not None:
+                self.obs.sync(self.now, n)
+
+    def _dispatch(self, kind: str, n: int = 1) -> None:
+        if n:
+            self.dispatches += n
+            if self.obs is not None:
+                self.obs.dispatch(self.now, kind, n)
+
+    # ------------------------------------------------------ physical paging
+    def _refresh_block_tables(self) -> None:
+        """Re-pin the device block tables to the manager's page assignment
+        (only when kv.version moved). Row `slot` holds that slot's table,
+        sentinel = pool size past its end; the extra all-sentinel last row
+        is the scatter target of row-bucket padding. Raises on overdraft
+        ids, which name no device row."""
+        if not self.physical_pages or self.kv.version == self._kv_version_seen:
+            return
+        P = self._pool_pages
+        bt = np.full((self.kv.num_slots + 1, self._max_pages), P, np.int32)
+        for rid, table in self.kv.block_table.items():
+            slot = self.kv.slot_of.get(rid)
+            if slot is None:
+                continue
+            if table and max(table) >= P:
+                raise RuntimeError(
+                    f"physical page pool overdrawn (page id {max(table)} "
+                    f">= pool size {P}): the scheduler admitted more "
+                    "context than the device pool holds")
+            if len(table) > self._max_pages:
+                raise RuntimeError(
+                    f"request {rid} holds {len(table)} pages but a slot "
+                    f"spans at most {self._max_pages} "
+                    f"(max_seq={self.max_seq}): its prompt_len + "
+                    "output_len exceeds the engine's context budget")
+            bt[slot, : len(table)] = table
+        self._bt_host = bt
+        self.cache = cache_lib.with_block_tables(self.cache, bt[:-1])
+        self._kv_version_seen = self.kv.version
+
+    def _paged_writer(self, cache, src, pad):
+        """Scatter a contiguous prefill result into the page pool — the
+        paged image of `_write_slots`. counts = length + 1: the contiguous
+        path writes the FULL padded row, and the one junk position a fresh
+        request ever attends is index `prompt` (its first emitted token's
+        KV is never written), so the +1 copies that position's content."""
+        rows = np.asarray(pad, np.int32)
+        bt_rows = torch.as_tensor(self._bt_host[rows])
+        counts = src["length"].to(torch.int32) + 1
+        starts = torch.zeros_like(counts)
+        self.page_scatters += 1
+        return _paged_commit(cache, bt_rows, starts, src["k"], src["v"],
+                             counts)
+
+    def submit(self, req: Request) -> None:
+        i = bisect.bisect_right(self._pending, req.arrival,
+                                lo=self._pending_pos,
+                                key=lambda r: r.arrival)
+        self._pending.insert(i, req)
+        self.seen.append(req)
+        if self.obs is not None:
+            self.obs.submit(req, req.arrival)
+        self.stuck = False
+
+    @property
+    def has_work(self) -> bool:
+        return self._pending_pos < len(self._pending) or bool(self.live)
+
+    def hotpath_stats(self) -> dict:
+        shapes = set(self._prefill.shapes_seen)
+        return {
+            "host_syncs": self.host_syncs,
+            "dispatches": self.dispatches,
+            "prefill_shapes": sorted(shapes),
+            "prefill_compiles": len(shapes),
+            "prefill_bucket_grid": list(self._prefill.buckets),
+            "multi_step_blocks": self.multi_step_blocks,
+            "multi_step_iters": self.multi_step_iters,
+            "persistent_blocks": self.persistent_blocks,
+            "persistent_iters": self.persistent_iters,
+            "page_gathers": self.page_gathers,
+            "page_scatters": self.page_scatters,
+            "page_gather_bytes": self.page_gather_bytes,
+        }
+
+    # ---------------------------------------------------------------- clock
+    def _tick(self, seconds: float) -> None:
+        """Virtual: now += seconds. Wall: sleep off what the host left of
+        the modeled duration, then stamp a real monotonic reading."""
+        if self.clock == "virtual":
+            self.now += seconds
+        else:
+            deadline = self.now + seconds
+            w = time.monotonic() - self._wall0
+            if deadline > w:
+                time.sleep(deadline - w)
+                w = time.monotonic() - self._wall0
+            self.now = w
+
+    # -------------------------------------------------------------- prefill
+    def _prompt_tokens(self, r: Request) -> np.ndarray:
+        """Prompt (synthesized from the rid for token-less requests) plus
+        any generated prefix (recompute resume)."""
+        if r.prompt_tokens is None:
+            rng = np.random.default_rng(r.rid)
+            r.prompt_tokens = rng.integers(
+                0, self.model.cfg.vocab_size, r.prompt_len
+            ).astype(np.int32)
+        return np.concatenate([
+            np.asarray(r.prompt_tokens, np.int32),
+            np.asarray(r.output_tokens[: r.generated], np.int32),
+        ])
+
+    def _can_stage_prefill(self, r: Request) -> bool:
+        if not self.hotpath.prefill_buckets or not self._prefill_bucketable:
+            return False
+        return r.generated > 0 or (self.eos_id < 0 and r.output_len > 1)
+
+    def _stage_prefill(self, r: Request) -> _StagedPrefill:
+        toks = self._prompt_tokens(r)
+        slot = self.kv.allocate(r)
+        self.slot_req[slot] = r
+        self._tick(self.lat.prefill_latency(len(toks)))
+        if self.obs is not None:
+            self.obs.prefill(r, self.now, len(toks))
+        emit_t = None
+        if r.generated == 0:
+            emit_t = self.now
+            r.generated = 1
+            r.emit_times.append(emit_t)
+            self.fluid.emit(r.fluid_idx, emit_t, 1)
+            self.kv.grow(r)
+            self.total_tokens += 1
+        return _StagedPrefill(r, slot, toks, emit_t)
+
+    # ------------------------------------------------------ chunked prefill
+    def _should_chunk(self, r: Request) -> bool:
+        return (self.prefill_chunk > 0
+                and r.context_len > self.prefill_chunk
+                and self._can_stage_prefill(r))
+
+    def _stage_chunk(self, r: Request) -> _StagedPrefill:
+        toks = self._prompt_tokens(r)
+        total = len(toks)
+        if r.prefill_cursor == 0:                  # admission: first chunk
+            slot = self.kv.allocate(r, tokens=0)
+            self.slot_req[slot] = r
+        else:
+            slot = r.engine_slot
+        step = min(self.prefill_chunk, total - r.prefill_cursor)
+        r.prefill_cursor += step
+        self.kv.grow(r, step)
+        self._tick(self.lat.prefill_chunk_latency(step, r.prefill_cursor))
+        if self.obs is not None:
+            self.obs.prefill_chunk(r, self.now, r.prefill_cursor, total)
+        prefix = toks[: r.prefill_cursor]
+        emit_t = None
+        if r.prefill_cursor >= total:              # final chunk
+            r.prefill_cursor = 0
+            if self.obs is not None:
+                self.obs.prefill(r, self.now, total)
+            if r.generated == 0:
+                emit_t = self.now
+                r.generated = 1
+                r.emit_times.append(emit_t)
+                self.fluid.emit(r.fluid_idx, emit_t, 1)
+                self.kv.grow(r)
+                self.total_tokens += 1
+        return _StagedPrefill(r, slot, prefix, emit_t)
+
+    def _flush_prefills(self, staged: List[_StagedPrefill]) -> None:
+        """Run every staged admission's device work; first-token emissions
+        finalize in admission order."""
+        if not staged:
+            return
+        writer = None
+        if self.physical_pages:
+            self._refresh_block_tables()
+            writer = self._paged_writer
+        slots = [rec.slot for rec in staged]
+        self.cache, first, syncs, n_groups = self._prefill.prefill_into(
+            self.params, self.cache, slots, [rec.toks for rec in staged],
+            write=writer)
+        self._sync(syncs)
+        self._dispatch("prefill", n_groups)
+        self._dispatch("write", n_groups)
+        obs = self.obs
+        for i, rec in enumerate(staged):
+            if rec.emit_t is not None:
+                rec.req.output_tokens.append(int(first[i]))
+                if obs is not None:
+                    obs.emit(rec.req, rec.emit_t, 1)
+
+    def _prefill_request(self, r: Request) -> None:
+        """One request, one prefill, one slot write. With bucketed prefill
+        on, the staged machinery applied to a single request; otherwise
+        the eager exact-length path (the benchmark baseline)."""
+        if self.hotpath.prefill_buckets and self._prefill_bucketable:
+            rec = self._stage_prefill(r)
+            self._flush_prefills([rec])
+            if rec.emit_t is not None:
+                tok = r.output_tokens[-1]
+                if (r.generated >= r.output_len
+                        or (self.eos_id >= 0 and tok == self.eos_id)):
+                    self._finish(r)
+            return
+        toks = self._prompt_tokens(r)
+        one = self.model.init_cache(1, self._cache_seq,
+                                    dtype=self.cache["k"].dtype)
+        batch = {"tokens": torch.as_tensor(toks)[None].to(self.model.device)}
+        logits, one = self.model.prefill(self.params, batch, one)
+        self._prefill.note_shape((1, len(toks)))
+        self._dispatch("prefill")
+        slot = self.kv.allocate(r)
+        if self.physical_pages:
+            if r.generated == 0:
+                # own the page under position len(toks) now: the first
+                # emitted token's KV never lands there, so the decode
+                # window reads whatever this scatter leaves (zeros from the
+                # scratch row — the contiguous path's content)
+                self.kv.ensure_pages(r, len(toks) + 1)
+            self._refresh_block_tables()
+            self.page_scatters += 1
+            self.cache = _paged_commit(
+                self.cache, torch.as_tensor(self._bt_host[[slot]]),
+                torch.zeros((1,), dtype=torch.int32), one["k"], one["v"],
+                torch.as_tensor([len(toks) + 1], dtype=torch.int32))
+        else:
+            self.cache = _write_slot(self.cache, one, slot)
+        self._dispatch("write")
+        self.slot_req[slot] = r
+        self._tick(self.lat.prefill_latency(len(toks)))
+        if self.obs is not None:
+            self.obs.prefill(r, self.now, len(toks))
+        if r.generated == 0:
+            tok = int(torch.argmax(logits[0]))
+            self._sync()
+            self._emit(r, tok)
+
+    # ---------------------------------------------------------------- emit
+    def _emit(self, r: Request, tok: int) -> None:
+        r.output_tokens.append(tok)
+        r.generated += 1
+        r.emit_times.append(self.now)
+        self.fluid.emit(r.fluid_idx, self.now, 1)
+        self.kv.grow(r)
+        self.total_tokens += 1
+        if self.obs is not None:
+            self.obs.emit(r, self.now, 1)
+        done = (r.generated >= r.output_len
+                or (self.eos_id >= 0 and tok == self.eos_id))
+        if done:
+            self._finish(r)
+
+    def _finish(self, r: Request) -> None:
+        r.state = ReqState.FINISHED
+        r.finish_time = self.now
+        self.sched.on_request_finish(r)
+        slot = r.engine_slot
+        self.kv.release(r)
+        self.slot_req.pop(slot, None)
+        if self.obs is not None:
+            self.obs.finish(r, self.now)
+
+    # ------------------------------------------------------------ preempt
+    def _preempt(self, r: Request) -> None:
+        r.preemptions += 1
+        self.preemptions += 1
+        slot = r.engine_slot
+        if self.preemption_mode == "swap":
+            self._dispatch("read")
+            if self.physical_pages:
+                # gather the victim's pages into one contiguous host row —
+                # same leaf shapes and bytes as the `_read_slot` slice
+                self._refresh_block_tables()
+                host_slice = _paged_read_row(
+                    self.cache, torch.as_tensor(self._bt_host[[slot]]), slot,
+                    max_seq=self._cache_seq)
+                self.page_gathers += 1
+                self.page_gather_bytes += sum(
+                    v.nbytes for k, v in host_slice.items() if k != "length")
+            else:
+                host_slice = _read_slot(self.cache, slot)
+            self._sync()
+            self.kv.swap_out(r, host_slice)
+            r.state = ReqState.SWAPPED
+            self._tick(self.lat.swap_latency(
+                r.prefill_cursor or r.context_len))
+        else:
+            self.kv.drop(r)
+            r.state = ReqState.WAITING
+            r.prefilled = False
+            r.prefill_cursor = 0        # recompute rewinds the chunk cursor
+        self.slot_req.pop(slot, None)
+        self.sched.record_preemptions(1)
+        if self.obs is not None:
+            self.obs.preempt(r, self.now, self.preemption_mode)
+
+    def _swap_in(self, r: Request) -> None:
+        host_slice = self.kv.swap_in(r)
+        slot = self.kv.allocate(r, tokens=(r.prefill_cursor or None))
+        if self.physical_pages:
+            self._refresh_block_tables()
+            self.page_scatters += 1
+            dev = self.cache["k"].device
+            self.cache = _paged_commit(
+                self.cache, torch.as_tensor(self._bt_host[[slot]]),
+                torch.zeros((1,), dtype=torch.int32),
+                host_slice["k"].to(dev), host_slice["v"].to(dev),
+                torch.as_tensor([r.prefill_cursor or r.context_len],
+                                dtype=torch.int32))
+        else:
+            self.cache = _write_slot(self.cache, host_slice, slot)
+        self._dispatch("write")
+        self.slot_req[slot] = r
+        r.state = ReqState.RUNNING
+        self._tick(self.lat.swap_latency(r.prefill_cursor or r.context_len))
+        if self.obs is not None:
+            self.obs.swap_in(r, self.now)
+
+    # ------------------------------------------------------ multi-step decode
+    def _multi_step_plan(self, active, total_ctx: int,
+                         until: Optional[float]) -> int:
+        """Largest j for which running j decode iterations unsupervised is
+        provably identical to single-stepping (reference docstring).
+        Returns 1 whenever any condition fails."""
+        cap = self.hotpath.multi_step
+        if cap <= 1:
+            return 1
+        if self.clock != "virtual" and not (
+                self.hotpath.wall_multi_step and self._rollback_ok):
+            return 1
+        if len(active) != len(self.live):
+            return 1
+        if self.eos_id >= 0 and not self._rollback_ok:
+            return 1
+        margin = min(r.output_len - r.generated for r in active.values())
+        j_max = min(cap, margin)
+        if j_max < 2:
+            return 1
+        j_max = min(j_max, self.sched.idle_steps(self.live, j_max - 1) + 1)
+        if j_max < 2:
+            return 1
+        bound = np.inf
+        if self._pending_pos < len(self._pending):
+            bound = self._pending[self._pending_pos].arrival
+        if until is not None:
+            bound = min(bound, until)
+        j = 1
+        if bound != np.inf:
+            t = self.now
+            ticks = self.lat.iter_latency_schedule(
+                len(active), total_ctx, j_max)
+            while j < j_max:
+                t = t + ticks[j - 1]                    # end of step j
+                if not (t < bound):
+                    break
+                j += 1
+        else:
+            j = j_max
+        if j < 2:
+            return 1
+        if self.hotpath.persistent:
+            return j
+        return 1 << (j.bit_length() - 1)        # power-of-two grid
+
+    def _commit_block(self, active, ids, total_ctx: int, j: int) -> int:
+        """Replay a block's per-step bookkeeping exactly as the one-step
+        loop performs it. Returns iterations committed."""
+        items = list(active.items())
+        b = len(items)
+        ticks = self.lat.iter_latency_schedule(b, total_ctx, j)
+        committed = 0
+        for s in range(j):
+            if s:
+                self.batch_sizes.append(b)
+            self._tick(ticks[s])
+            finished = False
+            for slot, r in items:
+                self._emit(r, int(ids[s, slot]))
+                finished = finished or not r.is_live
+            committed += 1
+            if committed < j:
+                if finished:
+                    break
+                if (self.clock != "virtual"
+                        and self._pending_pos < len(self._pending)
+                        and self._pending[self._pending_pos].arrival
+                        <= self.now):
+                    break
+        return committed
+
+    def _multi_step_decode(self, active, tokens, total_ctx: int,
+                           j: int) -> int:
+        ids, self.cache = self._decode_multi(
+            self.params, torch.as_tensor(tokens).to(self.model.device),
+            self.cache, j)
+        self._dispatch("decode_multi")
+        ids = ids.cpu().numpy()                 # ONE sync for j iterations
+        self._sync()
+        self.multi_step_blocks += 1
+        committed = self._commit_block(active, ids, total_ctx, j)
+        self.multi_step_iters += committed
+        self.sched.skip_iterations(committed - 1)
+        if self.obs is not None:
+            self.obs.multi_step(self.now, j, committed)
+        return committed
+
+    def _persistent_decode(self, active, tokens, total_ctx: int,
+                           j: int) -> int:
+        ids, self.cache, steps = self._decode_persist(
+            self.params, torch.as_tensor(tokens).to(self.model.device),
+            self.cache, j, j_cap=self.hotpath.multi_step)
+        self._dispatch("decode_persistent")
+        ids = ids.cpu().numpy()                 # ONE sync for the block
+        self._sync()
+        self.multi_step_blocks += 1
+        self.persistent_blocks += 1
+        committed = self._commit_block(active, ids, total_ctx, j)
+        self.multi_step_iters += committed
+        self.persistent_iters += int(steps)
+        self.sched.skip_iterations(committed - 1)
+        if self.obs is not None:
+            self.obs.multi_step(self.now, j, committed)
+            self.obs.persistent_loop(self.now, j, int(steps))
+        return committed
+
+    # ----------------------------------------------------------- main loop
+    def _admit_arrivals(self) -> None:
+        pend = self._pending
+        pos = self._pending_pos
+        obs = self.obs
+        while pos < len(pend) and pend[pos].arrival <= self.now:
+            r = pend[pos]
+            pos += 1
+            r.fluid_idx = self.fluid.add(r.arrival, r.spec)
+            r.state = ReqState.WAITING
+            self.live.append(r)
+            self.sched.on_request_arrival(r)
+            if obs is not None:
+                obs.admit(r, self.now)
+        self._pending_pos = pos
+        if pos and pos * 2 >= len(pend):
+            del pend[:pos]
+            self._pending_pos = 0
+
+    def step(self, until: Optional[float] = None) -> bool:
+        """One continuous-batching iteration (schedule → preempt →
+        swap-in/prefill → decode over all occupied slots). Returns False
+        when there is nothing left to do."""
+        if self.stuck or not self.has_work:
+            return False
+        if not self.live and self._pending_pos < len(self._pending):
+            nxt = self._pending[self._pending_pos].arrival
+            if self.clock != "virtual" and nxt > self.now:
+                w = time.monotonic() - self._wall0
+                if nxt > w:
+                    time.sleep(nxt - w)
+                self.now = max(self.now, time.monotonic() - self._wall0)
+            else:
+                self.now = max(self.now, nxt)
+        self._admit_arrivals()
+        if not self.live:
+            return True
+
+        target = self.sched.schedule(self.now, self.live, self.fluid)
+        target_ids = {id(r) for r in target}
+
+        n_preempted = 0
+        for r in list(self.slot_req.values()):
+            if id(r) not in target_ids and r.state == ReqState.RUNNING:
+                self._preempt(r)
+                n_preempted += 1
+        n_admitted = 0
+        staged: List[_StagedPrefill] = []
+        for r in target:
+            if r.state == ReqState.SWAPPED and self.kv.can_allocate(
+                    r, tokens=(r.prefill_cursor or None)):
+                self._swap_in(r)
+                n_admitted += 1
+            elif r.state == ReqState.RUNNING and r.prefill_cursor:
+                staged.append(self._stage_chunk(r))
+                n_admitted += 1
+            elif r.state == ReqState.WAITING:
+                if self._should_chunk(r):
+                    if self.kv.can_allocate(r, tokens=self.prefill_chunk):
+                        r.state = ReqState.RUNNING
+                        r.prefilled = True
+                        staged.append(self._stage_chunk(r))
+                        n_admitted += 1
+                elif self.kv.can_allocate(r):
+                    r.state = ReqState.RUNNING
+                    r.prefilled = True
+                    if self._can_stage_prefill(r):
+                        staged.append(self._stage_prefill(r))
+                    else:
+                        self._flush_prefills(staged)
+                        staged = []
+                        self._prefill_request(r)
+                    n_admitted += 1
+        self._flush_prefills(staged)
+
+        # ---- decode over all occupied slots ---------------------------
+        active = {s: r for s, r in self.slot_req.items()
+                  if r.state == ReqState.RUNNING and not r.prefill_cursor}
+        self.batch_sizes.append(len(active))
+        committed_iters = 1
+        if active:
+            lengths = np.zeros(self.kv.num_slots, np.int32)
+            tokens = np.zeros(self.kv.num_slots, np.int32)
+            for s, r in active.items():
+                lengths[s] = r.context_len
+                tokens[s] = r.output_tokens[-1] if r.output_tokens else 0
+            self.cache = cache_lib.with_lengths(self.cache, lengths)
+            total_ctx = int(lengths.sum())
+            j = self._multi_step_plan(active, total_ctx, until)
+            if self.physical_pages:
+                # pre-reserve every page the block will write (step s
+                # writes position ctx+s), then pin the tables
+                for _s, r in active.items():
+                    self.kv.ensure_pages(
+                        r, min(r.context_len + j, self._cache_seq))
+                self._refresh_block_tables()
+            if j > 1:
+                if self.hotpath.persistent:
+                    committed_iters = self._persistent_decode(
+                        active, tokens, total_ctx, j)
+                else:
+                    committed_iters = self._multi_step_decode(
+                        active, tokens, total_ctx, j)
+                if self.physical_pages:
+                    for r in list(active.values()):
+                        if r.is_live:
+                            self.kv.trim_pages(r)
+            else:
+                dev_tokens = torch.as_tensor(tokens).to(self.model.device)
+                if self.hotpath.fused_sampling:
+                    ids, self.cache = self._decode_tok(
+                        self.params, dev_tokens, self.cache)
+                    self._dispatch("decode")
+                    self._tick(self.lat.iter_latency(len(active), total_ctx))
+                    nxt = ids.cpu().numpy()
+                else:
+                    logits, self.cache = self._decode(
+                        self.params, dev_tokens, self.cache)
+                    self._dispatch("decode")
+                    self._tick(self.lat.iter_latency(len(active), total_ctx))
+                    nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+                self._sync()
+                for s, r in list(active.items()):
+                    self._emit(r, int(nxt[s]))
+        else:
+            self._tick(self.lat.hw.overhead)
+
+        self.iterations += committed_iters
+        self.live = [r for r in self.live if r.is_live]
+        n_live = len(self.live)
+        self._admit_arrivals()
+        newly_arrived = len(self.live) > n_live
+
+        # ---- deadlock guard: nothing moved and nothing can arrive -------
+        if not active and not n_admitted and not n_preempted \
+                and not newly_arrived \
+                and self._pending_pos >= len(self._pending):
+            self.stuck = True
+            return False
+        return True
+
+    def result(self) -> SimResult:
+        return SimResult(
+            requests=list(self.seen),
+            makespan=self.now,
+            total_tokens=self.total_tokens,
+            preemptions=self.preemptions,
+            iterations=self.iterations,
+            batch_sizes=self.batch_sizes,
+        )
+
+    def run(self, workload: List[Request], max_iterations: int = 100_000):
+        """Serve the workload to completion (reset + submit all + step
+        until drained). Returns the requests."""
+        self.reset()
+        for r in sorted(workload, key=lambda r: r.arrival):
+            self.submit(r)
+        while self.iterations < max_iterations:
+            if not self.step():
+                break
+        return workload
