@@ -3,27 +3,38 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — the Andes serving engine over the
-full-width, full-depth Llama-3-8B config with random bf16 weights made
-from a seed — and holds every hand-written CUDA kernel on that path
-against its plain PyTorch version. Phases, in order:
+Drives the port's two main paths — the Andes serving engine over the
+full-width, full-depth Llama-3-8B and Falcon-Mamba-7B configs with random
+bf16 weights made from a seed — and holds every hand-written CUDA kernel
+on those paths against its plain PyTorch version. Phases, in order:
 
 1. the device: name and power limit from nvidia-smi;
 2. build the CUDA kernels (one nvcc per source, in parallel);
-3. each kernel against its plain version at the main path's shapes, in
-   bf16 (tolerance 2e-2), with its time, the plain version's time, the
-   time of one PyTorch library call computing the same function where
-   there is one (SDPA; a yardstick only, the port never calls it) and the
-   least time the card could take (bytes or FLOPs over the H100's peaks);
-4. the smoke-size engine on the card against the same engine on the CPU
-   (plain versions), f32: identical virtual timing and tokens identical
-   up to documented near-ties — the repo's differential check on a small
-   input;
-5. the full-width engine, twice: over the physical page pool (page 16,
-   paged decode kernel) and over the contiguous cache (decode kernel),
-   with every kernel's launch counter set to 0 before and read after.
-   Both runs must finish every request with its full output, share one
-   timing fingerprint, and agree on tokens up to bf16 near-ties.
+3. each kernel against its plain version at the main path's shapes, with
+   its time, the plain version's time, the time of one PyTorch library
+   call computing the same function where there is one (SDPA; a yardstick
+   only, the port never calls it) and the least time the card could take
+   (bytes over the HBM rate against operations over their peak rate:
+   bf16 tensor-core FLOPs for attention; f32 FLOPs and SFU exponentials
+   for the scan). Attention in bf16 (tolerance 2e-2 absolute); the
+   selective scan in bf16 (2e-2 relative to max |y|, final state 1e-4)
+   and once in f32 (1e-5);
+4. the smoke-size engines on the card against the same engines on the CPU
+   (plain versions), f32, with a capacity that forces preemption: llama3
+   over the contiguous cache and the page pool, falcon-mamba in swap and
+   in recompute mode. Identical virtual timing and tokens identical up to
+   documented near-ties — the repo's differential check on a small input;
+5. the full-width llama3-8b engine, twice: over the physical page pool
+   (page 16, paged decode kernel) and over the contiguous cache (decode
+   kernel), with the launch counters set to 0 before and read after. Both
+   runs must finish every request with its full output, share one timing
+   fingerprint, and agree on tokens up to bf16 near-ties;
+6. the full-width falcon-mamba-7b engine, twice over the contiguous state
+   cache: with ample capacity and with a capacity that forces swap
+   preemptions, the launch counters set to 0 before each run and read
+   after: the scan kernel runs once per layer of every prefill group.
+   Both runs must finish every request and agree on tokens up to bf16
+   near-ties.
 
 It prints the kernels' JSON line, the card line, and last the result
 line {"ok": true, "device": {...}}. With no CUDA device, or outside a
@@ -42,8 +53,15 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 BF16_TOL = 2e-2            # the reference's bf16 kernel tolerance
+F32_SCAN_TOL = 1e-5        # the reference's Pallas-vs-ref scan bound (f32)
+STATE_TOL = 1e-4           # the scan's final state, f32 in both versions
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12        # dense bf16 tensor-core peak, same source
+F32_FLOPS = 67e12          # f32 outside the tensor cores, same source
+# expf issues one MUFU.EX2 on the SFU: 16 per SM per clock on compute
+# capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
+# throughput table); the rate is that times the SMs and the max SM clock
+EXP_PER_SM_CLOCK = 16
 SPIN_CYCLES = 200_000_000  # ~0.1 s of SM clock: covers the host's enqueueing
 # A token flip between the two full-width runs is a near-tie when the
 # exact-length path's top-2 margin is within a few bf16 rounding steps of
@@ -57,12 +75,19 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(query="name,power.limit", units=True) -> str:
+    fmt = "csv,noheader" + ("" if units else ",nounits")
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
         capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0] if out.stdout else "unknown"
+
+
+def exp_rate(torch) -> float:
+    """expf per second: SFU issue rate x SMs x max SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(nvidia_smi("clocks.max.sm", units=False))
+    return EXP_PER_SM_CLOCK * sms * mhz * 1e6
 
 
 # ---------------------------------------------------------------------------
@@ -101,9 +126,11 @@ def time_ms(torch, fn, flush, iters=20, warmup=3) -> float:
     return sum(a.elapsed_time(b) for a, b in events) / iters
 
 
-def bound_ms(bytes_moved: float, flops: float):
+def bound_ms(bytes_moved: float, *ops):
+    """The least time for the work: the bytes over the HBM rate against
+    each (count, peak rate per second) of operations."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = max(n / rate * 1e3 for n, rate in ops)
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -168,7 +195,7 @@ def check_kernels(torch):
         ms = time_ms(torch, fn, flush)
         plain_ms = time_ms(torch, plain, flush, iters=5, warmup=1)
         lib_ms = time_ms(torch, lib, flush) if lib is not None else None
-        b_ms, b_by = bound_ms(nbytes, flops)
+        b_ms, b_by = bound_ms(nbytes, (flops, BF16_FLOPS))
         print(f"  {name}{extra}: max|err| {err:.3e} (tol {BF16_TOL})  "
               f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
               f"library {('%.4f ms' % lib_ms) if lib_ms is not None else 'n/a'}"
@@ -237,9 +264,73 @@ def check_kernels(torch):
         lambda: kc.flash_attention(q, k, v, causal=True, lengths=lengths),
         lambda: ref.attention_ref(q, k, v, causal=True, lengths=lengths),
         lib, pre_bytes, 4 * h * hd * pairs)
+    rows["selective_scan"] = check_scan(torch, flush, gen)
     del flush
     torch.cuda.empty_cache()
     return rows
+
+
+def check_scan(torch, flush, gen):
+    """The scan at the full-width prefill's shape (B=4 rows of a 512
+    bucket, d_inner 8192, N 16), as the model hands it over: B and C are
+    column slices of the x_proj output (dt_rank 256 columns first), dt is
+    zero past each row's length. Timed as the prefill calls it, with the
+    final state."""
+    from repro_torch.kernels import cuda as kc
+    from repro_torch.kernels import ref
+    b, s, d, n, r = 4, 512, 8192, 16, 256
+    lengths = torch.tensor([512, 389, 200, 64])
+
+    def inputs(dtype):
+        x = torch.randn((b, s, d), generator=gen)
+        dt = torch.nn.functional.softplus(
+            torch.randn((b, s, d), generator=gen) - 1)
+        pad = torch.arange(s)[None, :, None] >= lengths[:, None, None]
+        dt = dt.masked_fill(pad, 0.0)
+        A = -torch.exp(torch.randn((d, n), generator=gen) * 0.5)
+        dbc = torch.randn((b, s, r + 2 * n), generator=gen)
+        x, dt, dbc = (t.to("cuda", dtype) for t in (x, dt, dbc))
+        return (x, dt, A.cuda(), dbc[..., r:r + n], dbc[..., r + n:],
+                torch.ones(d, device="cuda"))
+
+    def rel(out, expect):
+        return ((out.float() - expect.float()).abs().max()
+                / expect.float().abs().max()).item()
+
+    errs = {}
+    for dtype, tol in ((torch.float32, F32_SCAN_TOL),
+                       (torch.bfloat16, BF16_TOL)):
+        args = inputs(dtype)
+        y, h = kc.selective_scan(*args, return_state=True)
+        torch.cuda.synchronize()
+        y_ref, h_ref = ref.selective_scan_with_state_ref(*args)
+        y_rel, h_rel = rel(y, y_ref), rel(h, h_ref)
+        errs[dtype] = (y.float() - y_ref.float()).abs().max().item()
+        print(f"  selective_scan ({str(dtype)[6:]}): max|y err| "
+              f"{errs[dtype]:.3e}, relative {y_rel:.3e} (tol {tol}); h_last "
+              f"relative {h_rel:.3e} (tol {STATE_TOL})", flush=True)
+        if not (y_rel <= tol and h_rel <= STATE_TOL):
+            fail(f"selective_scan ({dtype}) disagrees with its plain version")
+    # timed in bf16, the main path's dtype (args are the bf16 inputs)
+    ms = time_ms(torch, lambda: kc.selective_scan(*args, return_state=True),
+                 flush)
+    plain_ms = time_ms(torch,
+                       lambda: ref.selective_scan_with_state_ref(*args),
+                       flush, iters=5, warmup=1)
+    el = b * s * d
+    nbytes = 3 * el * 2 + 2 * b * s * n * 2 + d * n * 4 + d * 4 \
+        + b * d * n * 4
+    flops = 6 * el * n + 3 * el
+    rate = exp_rate(torch)
+    b_ms, b_by = bound_ms(nbytes, (flops, F32_FLOPS), (el * n, rate))
+    print(f"  selective_scan (bf16, B={b} S={s} D={d} N={n}, with h_last): "
+          f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library none  "
+          f"bound {b_ms:.4f} ms ({b_by}: bytes "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, f32 FLOPs "
+          f"{flops / F32_FLOPS * 1e3:.4f} ms, {el * n / 1e6:.1f} M exp at "
+          f"{rate / 1e12:.3f} T/s {el * n / rate * 1e3:.4f} ms)", flush=True)
+    return dict(max_abs_err=errs[torch.bfloat16], ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
 # ---------------------------------------------------------------------------
@@ -312,117 +403,203 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
+SMALL_RUNS = (("llama3-8b", dict()), ("llama3-8b", dict(page_size=16)),
+              ("falcon-mamba-7b", dict(preemption_mode="swap")),
+              ("falcon-mamba-7b", dict(preemption_mode="recompute")))
+
+
 def check_small_engine(torch):
-    """Smoke config, f32: the engine on the card (CUDA kernels) against the
-    engine on the CPU (plain versions), contiguous and paged."""
+    """Smoke configs, f32: the engine on the card (CUDA kernels) against the
+    engine on the CPU (plain versions), with a capacity of 100 tokens so
+    that every run preempts."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import Model
     from repro_torch.serving import (all_flips_documented, audit_flips,
                                      timing_fingerprint)
-    cfg = get_smoke_config("llama3-8b")
-    cpu = Model(cfg, device="cpu")
-    params = cpu.init(torch.Generator().manual_seed(0))
-    gpu = Model(cfg, device="cuda")
-    gparams = _to(params, "cuda")
-    trace = make_trace(12, cfg.vocab_size, 0, (5, 30), (14, 15), 0.01)
-    for kw in (dict(), dict(page_size=16)):
+    for arch, kw in SMALL_RUNS:
+        cfg = get_smoke_config(arch)
+        cpu = Model(cfg, device="cpu")
+        params = cpu.init(torch.Generator().manual_seed(0))
+        gpu = Model(cfg, device="cuda")
+        gparams = _to(params, "cuda")
+        trace = make_trace(12, cfg.vocab_size, 0, (5, 30), (14, 15), 0.01)
         runs = [serve(m, p, trace, num_slots=4, max_seq=64,
                       cache_dtype=torch.float32, capacity=100, delta_t=2.0,
-                      **kw)[0]
+                      **kw)
                 for m, p in ((cpu, params), (gpu, gparams))]
-        same_t = timing_fingerprint(runs[0]) == timing_fingerprint(runs[1])
-        flips = audit_flips(cpu, params, runs[0], runs[1])
+        outs = [out for out, _ in runs]
+        same_t = timing_fingerprint(outs[0]) == timing_fingerprint(outs[1])
+        flips = audit_flips(cpu, params, outs[0], outs[1])
         n_same = sum(a.output_tokens == b.output_tokens
-                     for a, b in zip(*runs))
-        print(f"  smoke engine {kw or 'contiguous'}: timing identical "
-              f"{same_t}, token-identical requests {n_same}/{len(trace)}, "
-              f"flips {flips}", flush=True)
+                     for a, b in zip(*outs))
+        n_pre = runs[1][1].preemptions
+        print(f"  smoke {arch} engine {kw or 'contiguous'}: timing identical "
+              f"{same_t}, preemptions {n_pre}, token-identical requests "
+              f"{n_same}/{len(trace)}, flips {flips}", flush=True)
         if not same_t:
-            fail("smoke engine timing differs between the card and the CPU")
+            fail(f"smoke {arch} engine timing differs between the card and "
+                 "the CPU")
+        if not n_pre:
+            fail(f"smoke {arch} engine {kw}: the trace did not preempt")
         if not all_flips_documented(flips):
-            fail(f"smoke engine token divergence beyond near-ties: {flips}")
+            fail(f"smoke {arch} engine token divergence beyond near-ties: "
+                 f"{flips}")
 
 
-def check_full_engine(torch):
+def report_run(name, eng, out, timers, wall, launches):
+    """Print one full-width engine run: card-measured wall ms per prefill
+    group and per decode iteration, the modelled QoE, the launches; fail
+    if a request fell short of its output."""
     import numpy as np
-    from repro_torch.configs.llama3_8b import CONFIG
-    from repro_torch.kernels import cuda as kc
-    from repro_torch.models import Model
-    from repro_torch.serving import (audit_flips, first_divergence,
-                                     timing_fingerprint)
-
-    t0 = time.perf_counter()
-    model = Model(CONFIG, device="cuda")
-    params = model.init(torch.Generator(device="cuda").manual_seed(0),
-                        torch.bfloat16)
-    torch.cuda.synchronize()
-    n_params = sum(x.numel() for x in _leaves(params))
-    print(f"  llama3-8b: {CONFIG.num_layers} layers, d={CONFIG.d_model}, "
-          f"{n_params / 1e9:.3f} B params in bf16, init "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    trace = make_trace(12, CONFIG.vocab_size, 0, (64, 513), (32, 65), 0.05)
-    common = dict(num_slots=8, max_seq=1024, cache_dtype=torch.bfloat16,
-                  capacity=8 * 1024)
-    kc.reset_launches()
-    runs, per_run = {}, {}
-    for name, kw in (("paged16", dict(page_size=16)),
-                     ("contiguous", dict())):
-        before = dict(kc.launches)
-        timers = {}
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out, eng = serve(model, params, trace, timers=timers, **common, **kw)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        per_run[name] = {k: kc.launches[k] - before[k] for k in before}
-        runs[name] = out
-        pre = timers.get("prefill", [])
-        dec = timers.get("decode", [])
-        steps = sum(s for _, s in dec)
-        res = eng.result()
-        print(f"  engine {name}: physical_pages={eng.physical_pages} "
-              f"wall {wall:.2f} s; prefill groups {len(pre)}: "
-              + ", ".join(f"{r}x{s}={ms:.1f}ms" for ms, (r, s) in pre)
-              + f"; decode {len(dec)} blocks / {steps} iterations, "
-              f"{sum(ms for ms, _ in dec) / max(steps, 1):.2f} ms per "
-              f"iteration (card-measured, synchronized); launches "
-              f"{per_run[name]}", flush=True)
-        print(f"  engine {name} (modelled by the TPU_V5E virtual clock, not "
-              f"measured): avg QoE {res.avg_qoe():.4f}, mean TTFT "
-              f"{float(np.mean(res.ttfts())):.4f} s, makespan "
-              f"{res.makespan:.3f} s, preemptions {res.preemptions}",
-              flush=True)
-        short = [r.rid for r in out if r.generated != r.output_len]
-        if short:
-            fail(f"engine {name}: requests {short} did not finish")
-    launches = dict(kc.launches)
-    for k, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {k} was never launched on the main path")
-    a, b = runs["paged16"], runs["contiguous"]
-    if timing_fingerprint(a) != timing_fingerprint(b):
-        fail("paged and contiguous engines differ in timing")
-    flips = audit_flips(model, params, a, b, tol=BF16_FLIP_TOL)
-    n_div = sum(first_divergence(x.output_tokens, y.output_tokens)
-                is not None for x, y in zip(a, b))
-    print(f"  paged vs contiguous: timing identical, {n_div} requests with "
-          f"token differences, flips {flips} (tol {BF16_FLIP_TOL})",
+    pre = timers.get("prefill", [])
+    dec = timers.get("decode", [])
+    steps = sum(n for _, n in dec)
+    res = eng.result()
+    print(f"  engine {name}: physical_pages={eng.physical_pages} "
+          f"wall {wall:.2f} s; prefill groups {len(pre)}: "
+          + ", ".join(f"{r}x{s}={ms:.1f}ms" for ms, (r, s) in pre)
+          + f"; {sum(ms for ms, _ in pre) / max(len(pre), 1):.2f} ms per "
+          f"group; decode {len(dec)} blocks / {steps} iterations, "
+          f"{sum(ms for ms, _ in dec) / max(steps, 1):.2f} ms per "
+          f"iteration (card-measured, synchronized); launches {launches}",
           flush=True)
-    bad = [f for f in flips if f["classification"] != "documented_ulp_flip"]
-    if bad:
-        fail(f"paged and contiguous tokens diverge beyond near-ties: {bad}")
-    # the logits the engine argmaxes are finite and of the vocab's width
-    toks = torch.as_tensor(np.asarray(a[0].prompt_tokens, np.int32))[None]
+    print(f"  engine {name} (modelled by the TPU_V5E virtual clock, not "
+          f"measured): avg QoE {res.avg_qoe():.4f}, mean TTFT "
+          f"{float(np.mean(res.ttfts())):.4f} s, makespan "
+          f"{res.makespan:.3f} s, preemptions {res.preemptions}",
+          flush=True)
+    short = [r.rid for r in out if r.generated != r.output_len]
+    if short:
+        fail(f"engine {name}: requests {short} did not finish")
+
+
+def check_logits(torch, model, params, prompt):
+    """The logits the engine argmaxes are finite and of the vocab's width."""
+    import numpy as np
+    toks = torch.as_tensor(np.asarray(prompt, np.int32))[None]
     logits, _ = model.prefill(params, {"tokens": toks.cuda()},
                               model.init_cache(1, toks.shape[1] + 1,
                                                dtype=torch.bfloat16))
-    if tuple(logits.shape) != (1, CONFIG.vocab_size) or \
+    if tuple(logits.shape) != (1, model.cfg.vocab_size) or \
             not bool(torch.isfinite(logits).all()):
         fail(f"bad logits: shape {tuple(logits.shape)}")
     print(f"  logits finite, shape {tuple(logits.shape)}, max |logit| "
           f"{float(logits.float().abs().max()):.3f}", flush=True)
+
+
+def check_bf16_flips(model, params, a, b, label):
+    """Two full-width runs agree on tokens up to bf16 near-ties."""
+    from repro_torch.serving import audit_flips, first_divergence
+    flips = audit_flips(model, params, a, b, tol=BF16_FLIP_TOL)
+    n_div = sum(first_divergence(x.output_tokens, y.output_tokens)
+                is not None for x, y in zip(a, b))
+    print(f"  {label}: {n_div} requests with token differences, flips "
+          f"{flips} (tol {BF16_FLIP_TOL})", flush=True)
+    bad = [f for f in flips if f["classification"] != "documented_ulp_flip"]
+    if bad:
+        fail(f"{label}: tokens diverge beyond near-ties: {bad}")
+
+
+ATTENTION_KERNELS = ("flash_attention", "decode_attention",
+                     "paged_decode_attention")
+
+
+def full_width_model(torch, config):
+    from repro_torch.models import Model
+    t0 = time.perf_counter()
+    model = Model(config, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    print(f"  {config.name}: {config.num_layers} layers, d={config.d_model}, "
+          f"{n_params / 1e9:.3f} B params in bf16, init "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return model, params
+
+
+def timed_run(torch, model, params, trace, name, **kw):
+    """One full-width engine run with the launch counters set to 0 just
+    before and read just after. Returns (out, eng, launches, timers)."""
+    from repro_torch.kernels import cuda as kc
+    timers = {}
+    torch.cuda.synchronize()
+    kc.reset_launches()
+    t = time.perf_counter()
+    out, eng = serve(model, params, trace, timers=timers, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(kc.launches)
+    report_run(name, eng, out, timers, wall, launches)
+    return out, eng, launches, timers
+
+
+def check_full_engine(torch):
+    from repro_torch.configs.llama3_8b import CONFIG
+    from repro_torch.serving import timing_fingerprint
+
+    model, params = full_width_model(torch, CONFIG)
+    trace = make_trace(12, CONFIG.vocab_size, 0, (64, 513), (32, 65), 0.05)
+    common = dict(num_slots=8, max_seq=1024, cache_dtype=torch.bfloat16,
+                  capacity=8 * 1024)
+    runs = {}
+    launches = dict.fromkeys(ATTENTION_KERNELS, 0)
+    for name, kw in (("paged16", dict(page_size=16)),
+                     ("contiguous", dict())):
+        runs[name], _, n, _ = timed_run(torch, model, params, trace, name,
+                                        **common, **kw)
+        for k in launches:
+            launches[k] += n[k]
+    for k, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {k} was never launched on the llama3 main path")
+    a, b = runs["paged16"], runs["contiguous"]
+    if timing_fingerprint(a) != timing_fingerprint(b):
+        fail("paged and contiguous engines differ in timing")
+    print("  paged vs contiguous: timing identical", flush=True)
+    check_bf16_flips(model, params, a, b, "paged vs contiguous")
+    check_logits(torch, model, params, a[0].prompt_tokens)
     profile_engine_steps(torch, model, params)
     return launches
+
+
+# a capacity (tokens) under which the 12-request trace preempts: probed on
+# the virtual clock, which depends on lengths only (13 swap preemptions)
+MAMBA_TIGHT_CAPACITY = 2048
+
+
+def check_mamba_engine(torch):
+    from repro_torch.configs.falcon_mamba_7b import CONFIG
+
+    model, params = full_width_model(torch, CONFIG)
+    trace = make_trace(12, CONFIG.vocab_size, 0, (64, 513), (32, 65), 0.05)
+    common = dict(num_slots=8, max_seq=1024, cache_dtype=torch.bfloat16)
+    runs = {}
+    scans = 0
+    for name, cap in (("mamba ample", 8 * 1024),
+                      ("mamba tight", MAMBA_TIGHT_CAPACITY)):
+        runs[name], eng, n, timers = timed_run(
+            torch, model, params, trace, name, capacity=cap, **common)
+        groups = len(timers.get("prefill", []))
+        if n["selective_scan"] != CONFIG.num_layers * groups:
+            fail(f"engine {name}: {n['selective_scan']} scan launches for "
+                 f"{groups} prefill groups of {CONFIG.num_layers} layers")
+        if any(n[k] for k in ATTENTION_KERNELS):
+            fail(f"engine {name}: attention kernels ran on an SSM: {n}")
+        scans += n["selective_scan"]
+        if name == "mamba tight":
+            if not eng.preemptions:
+                fail("engine mamba tight: no preemption")
+            print(f"  mamba tight: {eng.preemptions} swap preemptions, "
+                  f"{eng.kv.swap_bytes_total / 1e6:.1f} MB of state "
+                  "swapped out to host memory", flush=True)
+    if scans <= 0:
+        fail("kernel selective_scan was never launched on the mamba path")
+    check_bf16_flips(model, params, runs["mamba ample"],
+                     runs["mamba tight"], "mamba ample vs tight")
+    check_logits(torch, model, params, runs["mamba ample"][0].prompt_tokens)
+    profile_engine_steps(torch, model, params)
+    return {"selective_scan": scans}
 
 
 def profile_window(torch, label, fn, steps):
@@ -498,6 +675,8 @@ SOURCES = {
         "src/repro/kernels/paged_attention.py:69"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:109"),
+    "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
+                       "src/repro/kernels/selective_scan.py:62"),
 }
 
 
@@ -531,15 +710,19 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"    {name}: {line.strip()}")
 
-    print("[3] kernels vs plain versions (bf16, main-path shapes; "
+    print("[3] kernels vs plain versions (main-path shapes; "
           f"{card}):", flush=True)
     rows = check_kernels(torch)
 
-    print("[4] smoke engine, card vs CPU (f32):", flush=True)
+    print("[4] smoke engines, card vs CPU (f32):", flush=True)
     check_small_engine(torch)
 
     print("[5] full-width llama3-8b engine (bf16):", flush=True)
     launches = check_full_engine(torch)
+    torch.cuda.empty_cache()
+
+    print("[6] full-width falcon-mamba-7b engine (bf16):", flush=True)
+    launches.update(check_mamba_engine(torch))
 
     kernels = []
     for name, (src, rep) in SOURCES.items():

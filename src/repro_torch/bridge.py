@@ -8,10 +8,12 @@ tensors, so a leaf's path and shape are the same on both sides.
 - ``from_numpy``: the reference's tree with numpy leaves (``np.asarray``
   of each JAX array) -> the port's dict of tensors on `device`.
 - ``to_numpy``: back (bf16 leaves widen to float32, numpy has no bf16).
-- ``init_params``: fresh weights for the dense family, following the
-  reference's init (``src/repro/models/transformer.py:39-121``): normal
-  with std 0.02, the embedding with std 1.0, norm scales one, biases
-  zero. A torch generator cannot reproduce ``jax.random``, so tests that
+- ``init_params``: fresh weights for the dense and ssm families,
+  following the reference's init (``src/repro/models/transformer.py:39-121``
+  and ``models/ssm.py:init_mamba1``): normal with std 0.02, the embedding
+  with std 1.0, norm scales one, biases zero; Mamba-1's conv with std 0.1,
+  dt_proj with std dt_rank^-0.5, dt_bias -2, A_log = log(1..N), D one.
+  A torch generator cannot reproduce ``jax.random``, so tests that
   compare the two frameworks bridge the reference's weights instead.
 """
 from __future__ import annotations
@@ -46,14 +48,14 @@ def to_numpy(tree):
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
                 dtype=torch.float32):
-    """Random dense-decoder params in the reference's tree layout.
+    """Random params of a dense or ssm model in the reference's tree layout.
 
-    Draws on the generator's device in f32 (one layer at a time, so the
-    full-width 8B config never holds a whole f32 stack) and stores in
+    Draws on the generator's device in f32 (one layer at a time, so a
+    full-width 7-8B config never holds a whole f32 stack) and stores in
     `dtype` on `device`."""
-    if cfg.kind != "dense":
+    if cfg.kind not in ("dense", "ssm"):
         raise NotImplementedError(
-            f"model kind {cfg.kind!r} is not ported yet (dense only)")
+            f"model kind {cfg.kind!r} is not ported yet (dense, ssm)")
     dev = resolve_device(device)
     gdev = generator.device
 
@@ -77,6 +79,26 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = {"kernel": normal((d, cfg.vocab_size))}
+    if cfg.kind == "ssm":
+        di, n, k = cfg.d_inner, cfg.ssm.d_state, cfg.ssm.d_conv
+        r = max(d // 16, 1)
+        full = lambda v, *s: torch.full(s, v, dtype=dtype, device=dev)  # noqa: E731
+        a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32))
+        params["blocks"] = {
+            "norm_scale": ones(L, d),
+            "mamba": {
+                "in_proj": stacked(L, (d, 2 * di)),
+                "conv_w": stacked(L, (k, di), std=0.1),
+                "conv_b": full(0.0, L, di),
+                "x_proj": stacked(L, (di, r + 2 * n)),
+                "dt_proj": stacked(L, (r, di), std=r ** -0.5),
+                "dt_bias": full(-2.0, L, di),
+                "A_log": a_log.expand(L, di, n).to(device=dev, dtype=dtype),
+                "D": ones(L, di),
+                "out_proj": stacked(L, (di, d)),
+            },
+        }
+        return params
     attn = {
         "wq": stacked(L, (d, h * hd)),
         "wk": stacked(L, (d, kv * hd)),

@@ -222,6 +222,7 @@ INPUT_SHAPES = {
 # slice adds its config module here
 ARCH_IDS = (
     "llama3-8b",
+    "falcon-mamba-7b",
 )
 
 _MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}

@@ -1,2 +1,2 @@
-"""Attention kernels: plain versions (ref), CUDA kernels (cuda, csrc/) and
-the device dispatch (ops)."""
+"""Attention and selective-scan kernels: plain versions (ref), CUDA kernels
+(cuda, csrc/) and the device dispatch (ops)."""

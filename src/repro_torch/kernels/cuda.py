@@ -1,4 +1,4 @@
-"""Python wrappers of the hand-written CUDA attention kernels.
+"""Python wrappers of the hand-written CUDA kernels.
 
 Each wrapper checks device, dtype, shape, contiguity and alignment,
 allocates the output with ``torch.empty``, launches on PyTorch's current
@@ -21,12 +21,14 @@ launches = {
     "flash_attention": 0,
     "decode_attention": 0,
     "paged_decode_attention": 0,
+    "selective_scan": 0,
 }
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGS = {
     "decode_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                          _P],
@@ -34,11 +36,14 @@ _SIGS = {
                                _I, _I, _I, _I, _F, _P],
     "flash_attention": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _I, _I, _F, _P],
+    "selective_scan": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                       _L, _L, _L, _L, _P],
 }
 _LIB_OF = {
     "decode_attention": "decode_attention",
     "paged_decode_attention": "decode_attention",
     "flash_attention": "flash_attention",
+    "selective_scan": "selective_scan",
 }
 _fns = {}
 
@@ -181,3 +186,40 @@ def flash_attention(q, k, v, *, causal=True, window=None, lengths=None,
          out.data_ptr(), b, sq, sk, h, kv, hd, int(bool(causal)),
          _window(window), _scale(sm_scale, hd), _stream())
     return out
+
+
+SCAN_STATES = (4, 8, 16, 32, 64)
+
+
+def selective_scan(x, dt, A, B, C, D, *, return_state=False):
+    """x, dt (B,S,D) contiguous; A (D,N); B, C (B,S,N) with unit last
+    stride (strided views are fine); D (D,) -> y (B,S,D) in x's dtype, and
+    with return_state also h_last (B,D,N) f32."""
+    name = "selective_scan"
+    bsz, s, d = x.shape
+    n = A.shape[1]
+    if n not in SCAN_STATES:
+        raise ValueError(f"{name}: unsupported d_state {n} "
+                         f"(one of {SCAN_STATES})")
+    if (dt.shape != x.shape or A.shape != (d, n) or D.shape != (d,)
+            or B.shape != (bsz, s, n) or C.shape != (bsz, s, n)):
+        raise ValueError(f"{name}: shape mismatch x {tuple(x.shape)} dt "
+                         f"{tuple(dt.shape)} A {tuple(A.shape)} B "
+                         f"{tuple(B.shape)} C {tuple(C.shape)} D "
+                         f"{tuple(D.shape)}")
+    _check(name, x, dt, dtype=x.dtype)
+    if not all(t.is_cuda for t in (A, B, C, D)):
+        raise ValueError(f"{name}: tensors must lie on a CUDA device")
+    if any(t.dtype != x.dtype or t.stride(2) != 1 for t in (B, C)):
+        raise ValueError(f"{name}: B and C need x's dtype and a unit last "
+                         "stride")
+    A = A.float().contiguous()
+    D = D.float().contiguous()
+    y = torch.empty_like(x)
+    h = (torch.empty((bsz, d, n), dtype=torch.float32, device=x.device)
+         if return_state else None)
+    _run(name, _dtype(name, x), x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+         B.data_ptr(), C.data_ptr(), D.data_ptr(), y.data_ptr(),
+         h.data_ptr() if h is not None else None, bsz, s, d, n,
+         B.stride(0), B.stride(1), C.stride(0), C.stride(1), _stream())
+    return (y, h) if return_state else y

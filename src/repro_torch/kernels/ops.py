@@ -1,11 +1,14 @@
-"""Dispatch of the attention entry points by the tensors' device.
+"""Dispatch of the kernel entry points by the tensors' device.
 
 A CUDA tensor launches the hand-written kernel (``kernels/cuda.py``); a
 CPU tensor takes the plain version (``kernels/ref.py``). There is no
 fallback: a CUDA call the kernel cannot take raises. Unlike the
 reference's dispatch (``src/repro/kernels/ops.py:48``), attention with
 ``lengths`` or ``q_offset`` launches the prefill kernel too, so the
-serving path's bucketed and chunked prefill run on it.
+serving path's bucketed and chunked prefill run on it. Likewise the
+scan kernel also returns the final state, so the serving prefill
+(``selective_scan_with_state``) runs on it and not only the full-sequence
+forward.
 """
 from __future__ import annotations
 
@@ -50,3 +53,24 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
     return _ref.paged_decode_attention_ref(
         q, k_pool, v_pool, block_tables, lengths, window=window,
         sm_scale=sm_scale)
+
+
+def selective_scan(x, dt, A, B, C, D):
+    """Mamba-1 selective scan. x, dt (B,S,D); A (D,N); B, C (B,S,N);
+    D (D,) -> y (B,S,D) in x's dtype."""
+    if x.is_cuda:
+        return _cuda.selective_scan(x, dt, A, B, C, D)
+    return _ref.selective_scan_ref(x, dt, A, B, C, D)
+
+
+def selective_scan_with_state(x, dt, A, B, C, D):
+    """The scan and its final state: -> (y (B,S,D), h_last (B,D,N) f32)."""
+    if x.is_cuda:
+        return _cuda.selective_scan(x, dt, A, B, C, D, return_state=True)
+    return _ref.selective_scan_with_state_ref(x, dt, A, B, C, D)
+
+
+def selective_scan_step(h, x, dt, A, B, C, D):
+    """One decode step of the recurrence, plain torch on every device (as
+    the reference: a handful of elementwise ops, no kernel)."""
+    return _ref.selective_scan_step_ref(h, x, dt, A, B, C, D)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the attention kernels.
+"""Plain PyTorch versions of the attention and selective-scan kernels.
 
 The semantic ground truth, line for line with ``src/repro/kernels/ref.py``:
 the CPU path of every dispatch in ``kernels/ops.py`` and the yardstick the
@@ -105,3 +105,52 @@ def paged_decode_attention_ref(
     v = v_pool[bt].reshape(b, n_pages * page, *v_pool.shape[2:])
     return decode_attention_ref(q, k, v, lengths, window=window,
                                 sm_scale=sm_scale)
+
+
+def selective_scan_with_state_ref(
+    x: torch.Tensor,     # (B, S, D)   D = d_inner
+    dt: torch.Tensor,    # (B, S, D)   softplus'd timestep
+    A: torch.Tensor,     # (D, N)      negative (continuous-time)
+    B: torch.Tensor,     # (B, S, N)
+    C: torch.Tensor,     # (B, S, N)
+    D: torch.Tensor,     # (D,)
+):
+    """Mamba-1 selective scan, sequential, with the final state.
+
+    h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) * B_t;  y_t = C_t . h_t + D*x_t
+    The arithmetic of the reference's ``ssm._scan_with_state``: f32 state
+    from zero, y cast to x's dtype, h_last (B, D, N) kept f32."""
+    bsz, s, d = x.shape
+    n = A.shape[1]
+    A = A.float()
+    h = torch.zeros((bsz, d, n), dtype=torch.float32, device=x.device)
+    xf, dtf, Bf, Cf = (t.float() for t in (x, dt, B, C))
+    y = torch.empty((bsz, s, d), dtype=torch.float32, device=x.device)
+    for t in range(s):
+        dA = torch.exp(dtf[:, t, :, None] * A[None])
+        h = dA * h + (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :]
+        y[:, t] = torch.einsum("bdn,bn->bd", h, Cf[:, t])
+    y = y + xf * D.float()[None, None]
+    return y.to(x.dtype), h
+
+
+def selective_scan_ref(x, dt, A, B, C, D) -> torch.Tensor:
+    """Mamba-1 selective scan, sequential oracle. Returns y (B, S, D) in
+    x's dtype (the reference's ``selective_scan_ref``)."""
+    return selective_scan_with_state_ref(x, dt, A, B, C, D)[0]
+
+
+def selective_scan_step_ref(
+    h: torch.Tensor,     # (B, D, N) carried state
+    x: torch.Tensor,     # (B, D)
+    dt: torch.Tensor,    # (B, D)
+    A: torch.Tensor,     # (D, N)
+    B: torch.Tensor,     # (B, N)
+    C: torch.Tensor,     # (B, N)
+    D: torch.Tensor,     # (D,)
+):
+    """One decode step of the Mamba-1 recurrence. Returns (h', y)."""
+    dA = torch.exp(dt[..., None] * A[None])
+    h = dA * h + dt[..., None] * B[:, None, :] * x[..., None]
+    y = torch.einsum("bdn,bn->bd", h, C) + x * D[None]
+    return h, y

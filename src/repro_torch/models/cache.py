@@ -1,8 +1,11 @@
-"""Decode caches: static-slot KV cache and the physical page pool.
+"""Decode caches: static-slot KV or SSM-state cache and the physical page
+pool.
 
 Layouts are the reference's (``src/repro/models/cache.py``):
 
   length        (B,)                       valid context tokens per slot
+  ssm_h         (L, B, d_inner, N) f32     Mamba-1 scan state
+  ssm_conv      (L, B, d_conv-1, d_inner)  Mamba-1 conv buffer
   k, v          (L, B, S_max, KV, hd)      contiguous cache rows
   k, v          (L, P, page, KV, hd)       physical page pool
   block_tables  (B, max_pages) int32       page ids per slot, ordered;
@@ -25,23 +28,34 @@ from repro_torch.device import resolve_device
 
 
 def _num_attn_applications(cfg: ModelConfig) -> int:
+    if cfg.kind == "ssm":
+        return 0
     if cfg.kind not in ("dense", "vlm", "moe"):
         raise NotImplementedError(
-            f"model kind {cfg.kind!r} is not ported yet (dense only)")
+            f"model kind {cfg.kind!r} is not ported yet (dense, ssm)")
     return cfg.num_layers
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                dtype=torch.bfloat16, device="cuda"):
-    """Contiguous decode cache, zero-filled."""
+    """Contiguous decode cache, zero-filled. Attention layers get k/v;
+    Mamba-1 layers get the scan state ssm_h (L, B, d_inner, N) in f32 and
+    the conv buffer ssm_conv (L, B, d_conv-1, d_inner) in `dtype`."""
     dev = resolve_device(device)
+    cache = {"length": torch.zeros((batch,), dtype=torch.int32, device=dev)}
     n = _num_attn_applications(cfg)
-    shape = (n, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
-    return {
-        "length": torch.zeros((batch,), dtype=torch.int32, device=dev),
-        "k": torch.zeros(shape, dtype=dtype, device=dev),
-        "v": torch.zeros(shape, dtype=dtype, device=dev),
-    }
+    if n:
+        shape = (n, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+        cache["k"] = torch.zeros(shape, dtype=dtype, device=dev)
+        cache["v"] = torch.zeros(shape, dtype=dtype, device=dev)
+    n_ssm = len(cfg.ssm_layer_ids())
+    if n_ssm:
+        s, di = cfg.ssm, cfg.d_inner
+        cache["ssm_h"] = torch.zeros((n_ssm, batch, di, s.d_state),
+                                     dtype=torch.float32, device=dev)
+        cache["ssm_conv"] = torch.zeros((n_ssm, batch, s.d_conv - 1, di),
+                                        dtype=dtype, device=dev)
+    return cache
 
 
 def supports_physical_paging(cfg: ModelConfig) -> bool:
@@ -112,13 +126,13 @@ def paged_gather_rows(pool, table_rows, max_seq: int):
 def with_block_tables(cache, tables):
     """Re-pin the device block tables (returns a new dict)."""
     return dict(cache, block_tables=torch.as_tensor(
-        tables, dtype=torch.int32).to(cache["k"].device))
+        tables, dtype=torch.int32).to(cache["length"].device))
 
 
 def with_lengths(cache, lengths):
     """Re-pin the per-slot valid-context lengths (returns a new dict)."""
     return dict(cache, length=torch.as_tensor(
-        lengths, dtype=torch.int32).to(cache["k"].device))
+        lengths, dtype=torch.int32).to(cache["length"].device))
 
 
 def supports_length_rollback(cfg: ModelConfig) -> bool:

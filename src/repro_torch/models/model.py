@@ -6,7 +6,8 @@
   logits, cache = model.prefill(params, {"tokens": t, "lengths": n}, cache)
   logits, cache = model.decode_step(params, tokens, cache)
 
-The counterpart of ``src/repro/models/model.py`` for the dense family.
+The counterpart of ``src/repro/models/model.py`` for the dense and ssm
+(Mamba-1) families.
 Params are the reference's stacked tree as a dict of tensors
 (``repro_torch.bridge``). Caches are updated in place.
 """
@@ -31,9 +32,7 @@ def _argmax_ids(logits: torch.Tensor) -> torch.Tensor:
 class Model:
     def __init__(self, cfg: ModelConfig, *, window: Optional[int] = None,
                  device="cuda"):
-        if cfg.kind != "dense":
-            raise NotImplementedError(
-                f"model kind {cfg.kind!r} is not ported yet (dense only)")
+        tfm.check_kind(cfg)
         self.cfg = cfg
         self.window = window
         self.device = resolve_device(device)
@@ -62,7 +61,9 @@ class Model:
 
         batch: {"tokens": (B, S) [, "lengths": (B,)]}; cache from
         init_cache (depth >= S), written in place at positions [0, S) —
-        the whole padded row, as the reference's dynamic_update_slice.
+        the whole padded row, as the reference's dynamic_update_slice —
+        or, for ssm, with each row's state at its last valid token. Writes
+        cast to the cache's dtypes.
         Returns (logits (B, V), cache')."""
         cfg = self.cfg
         tokens = batch["tokens"]
@@ -74,9 +75,12 @@ class Model:
         h, _, parts = tfm.forward(params, cfg, batch, window=self.window,
                                   collect_cache=True, lengths=lengths,
                                   return_hidden=True)
-        for i in range(cfg.num_layers):
-            cache["k"][i, :, :s] = parts["k"][i].to(cache["k"].dtype)
-            cache["v"][i, :, :s] = parts["v"][i].to(cache["v"].dtype)
+        for key in ("k", "v"):
+            for i, part in enumerate(parts.get(key, ())):
+                cache[key][i, :, :s] = part
+        for key in ("ssm_h", "ssm_conv"):
+            for i, part in enumerate(parts.get(key, ())):
+                cache[key][i] = part
         cache = dict(cache, length=lengths.to(torch.int32))
         # last valid position per row; the unembed runs on those rows only
         last = torch.clamp(lengths.long() - 1, 0, s - 1)

@@ -1,9 +1,9 @@
-"""Dense decoder assembly: full-sequence forward and one decode step.
+"""Decoder assembly: full-sequence forward and one decode step.
 
 Weights are stacked with a leading layer axis, as in the reference
 (``src/repro/models/transformer.py``), whose ``jax.lax.scan`` over the
-layers becomes a Python loop here. Only the dense family is ported; the
-other families raise.
+layers becomes a Python loop here. The dense and ssm (Mamba-1) families
+are ported; the others raise.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import embed_apply, mlp_apply, rms_norm, unembed
 
 
@@ -23,10 +24,14 @@ def layer_params(tree, i: int):
     return tree[i]
 
 
-def _check_kind(cfg: ModelConfig) -> None:
-    if cfg.kind != "dense":
+PORTED_KINDS = ("dense", "ssm")
+
+
+def check_kind(cfg: ModelConfig) -> None:
+    if cfg.kind not in PORTED_KINDS:
         raise NotImplementedError(
-            f"model kind {cfg.kind!r} is not ported yet (dense only)")
+            f"model kind {cfg.kind!r} is not ported yet "
+            f"(ported: {', '.join(PORTED_KINDS)})")
 
 
 def forward(params, cfg: ModelConfig, batch, *,
@@ -35,11 +40,40 @@ def forward(params, cfg: ModelConfig, batch, *,
     """Full-sequence causal forward.
 
     Returns (logits, aux) or, with collect_cache, (logits, aux, parts)
-    where parts = {"k": [L x (B, S, KV, hd)], "v": [...]} holds each
-    layer's k/v planes for the cache. With return_hidden the final-normed
+    where parts holds each layer's cache planes: {"k": [L x (B, S, KV,
+    hd)], "v": [...]} for dense, {"ssm_h": [L x (B, di, N)], "ssm_conv":
+    [L x (B, K-1, di)]} for ssm. With return_hidden the final-normed
     hidden states replace the logits."""
-    _check_kind(cfg)
+    check_kind(cfg)
     h = embed_apply(params["embed"], batch["tokens"])
+    if cfg.kind == "ssm":
+        h, parts = _forward_ssm(params, cfg, h, collect_cache, lengths)
+    else:
+        h, parts = _forward_dense(params, cfg, h, window, lengths)
+    h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    out = h if return_hidden else unembed(params, h)
+    if collect_cache:
+        return out, aux, parts
+    return out, aux
+
+
+def _forward_ssm(params, cfg, h, collect_cache, lengths):
+    hs, convs = [], []
+    for i in range(cfg.num_layers):
+        bp = layer_params(params["blocks"], i)
+        x = rms_norm(h, bp["norm_scale"], cfg.norm_eps)
+        if collect_cache:
+            y, st = ssm_lib.mamba1_prefill(bp["mamba"], x, cfg, lengths)
+            hs.append(st["h"])
+            convs.append(st["conv"])
+        else:
+            y = ssm_lib.mamba1_apply(bp["mamba"], x, cfg)
+        h = h + y
+    return h, {"ssm_h": hs, "ssm_conv": convs}
+
+
+def _forward_dense(params, cfg, h, window, lengths):
     ks, vs = [], []
     for i in range(cfg.num_layers):
         bp = layer_params(params["blocks"], i)
@@ -51,24 +85,42 @@ def forward(params, cfg: ModelConfig, batch, *,
         h = h + a
         x = rms_norm(h, bp["mlp_norm_scale"], cfg.norm_eps)
         h = h + mlp_apply(bp["mlp"], x)
-    h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    out = h if return_hidden else unembed(params, h)
-    if collect_cache:
-        return out, aux, {"k": ks, "v": vs}
-    return out, aux
+    return h, {"k": ks, "v": vs}
 
 
 def decode_step(params, cfg: ModelConfig, tokens, cache, *,
                 window: Optional[int] = None):
     """One decode iteration: tokens (B,) int32 -> (logits (B, V), cache').
 
-    The cache's k/v are updated in place; the returned dict carries
-    length + 1. A cache with `block_tables` routes through the page pool
-    (one write plan serves every layer)."""
-    _check_kind(cfg)
+    The cache's k/v (or ssm_h/ssm_conv) are updated in place; the
+    returned dict carries length + 1. A cache with `block_tables` routes
+    through the page pool (one write plan serves every layer)."""
+    check_kind(cfg)
     lengths = cache["length"]
     h = embed_apply(params["embed"], tokens)
+    if cfg.kind == "ssm":
+        h = _decode_ssm(params, cfg, h, cache)
+    else:
+        h = _decode_dense(params, cfg, h, cache, window)
+    h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
+    return unembed(params, h), dict(cache, length=lengths + 1)
+
+
+def _decode_ssm(params, cfg, h, cache):
+    for i in range(cfg.num_layers):
+        bp = layer_params(params["blocks"], i)
+        x = rms_norm(h, bp["norm_scale"], cfg.norm_eps)
+        y, st = ssm_lib.mamba1_decode(
+            bp["mamba"], x,
+            {"h": cache["ssm_h"][i], "conv": cache["ssm_conv"][i]}, cfg)
+        cache["ssm_h"][i] = st["h"]
+        cache["ssm_conv"][i] = st["conv"]
+        h = h + y
+    return h
+
+
+def _decode_dense(params, cfg, h, cache, window):
+    lengths = cache["length"]
     paged = "block_tables" in cache
     plan = None
     if paged:
@@ -88,6 +140,4 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, *,
         h = h + a
         x = rms_norm(h, bp["mlp_norm_scale"], cfg.norm_eps)
         h = h + mlp_apply(bp["mlp"], x)
-    h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
-    logits = unembed(params, h)
-    return logits, dict(cache, length=lengths + 1)
+    return h

@@ -618,8 +618,9 @@ class ServingEngine:
                     self._finish(r)
             return
         toks = self._prompt_tokens(r)
-        one = self.model.init_cache(1, self._cache_seq,
-                                    dtype=self.cache["k"].dtype)
+        kv_dtype = (self.cache["k"].dtype if "k" in self.cache
+                    else self.cache["ssm_conv"].dtype)
+        one = self.model.init_cache(1, self._cache_seq, dtype=kv_dtype)
         batch = {"tokens": torch.as_tensor(toks)[None].to(self.model.device)}
         logits, one = self.model.prefill(self.params, batch, one)
         self._prefill.note_shape((1, len(toks)))

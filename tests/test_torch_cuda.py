@@ -8,7 +8,7 @@ mode, so without a card every test here skips. On the card:
 This file imports no JAX, so it runs on a machine that has none. The
 kernels build from ``src/repro_torch/kernels/csrc`` on first use.
 Tolerances are the reference's kernel tolerances (f32 2e-5, bf16 2e-2,
-``tests/test_kernels.py``). Where nothing is attended (length 0, or a
+``tests/test_kernels.py``; the scan relative to max |y|, f32 1e-5). Where nothing is attended (length 0, or a
 window that excludes every key) the kernels write zeros — the Pallas
 convention — while the plain versions average uniformly; those rows are
 checked for zeros and left out of the comparison.
@@ -186,6 +186,67 @@ def test_flash_kernel(dev, case, dtype):
     assert not out[~rows].any()                     # Pallas: zeros
 
 
+SCAN_CASES = [
+    # (b, s, d, n): ragged S and D, every d_state the kernel takes, and
+    # the main path's width
+    (2, 77, 200, 16), (1, 33, 64, 8), (3, 40, 96, 4), (1, 20, 48, 32),
+    (2, 19, 40, 64), (4, 512, 8192, 16),
+]
+
+
+def _scan_args(b, s, d, n, dtype, dev, seed=20):
+    """Scan inputs as the model hands them over: B and C are column slices
+    of one projection (strided views), dt is zero past each row's length."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, s, d), generator=g)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, d), generator=g) - 1)
+    lens = torch.randint(1, s + 1, (b,), generator=g)
+    lens[0] = s
+    dt = dt.masked_fill(torch.arange(s)[None, :, None] >= lens[:, None, None],
+                        0.0)
+    A = -torch.exp(torch.randn((d, n), generator=g) * 0.5)
+    dbc = torch.randn((b, s, 5 + 2 * n), generator=g)
+    D = torch.full((d,), 0.3)
+    x, dt, dbc = (t.to(device=dev, dtype=dtype) for t in (x, dt, dbc))
+    return (x, dt, A.to(dev), dbc[..., 5:5 + n], dbc[..., 5 + n:], D.to(dev))
+
+
+def _rel(out, expect):
+    return float((out.float() - expect.float()).abs().max()
+                 / (expect.float().abs().max() + 1e-6))
+
+
+@pytest.mark.parametrize("case", SCAN_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_kernel(dev, case, dtype):
+    """Relative to max |y|: f32 1e-5 (the reference's Pallas-vs-ref bound,
+    tests/test_kernels.py:120), bf16 2e-2; the f32 state 1e-4."""
+    args = _scan_args(*case, dtype, dev)
+    assert not args[3].is_contiguous()
+    n0 = tcuda.launches["selective_scan"]
+    y = tcuda.selective_scan(*args)
+    y2, h = tcuda.selective_scan(*args, return_state=True)
+    assert tcuda.launches["selective_scan"] == n0 + 2
+    torch.cuda.synchronize()
+    y_ref, h_ref = tref.selective_scan_with_state_ref(*args)
+    assert y.dtype == dtype and h.dtype == torch.float32
+    assert torch.equal(y, y2)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert _rel(y, y_ref) <= tol
+    assert _rel(h, h_ref) <= 1e-4
+
+
+def test_selective_scan_kernel_refuses_bad_inputs(dev):
+    x, dt, A, B, C, D = _scan_args(1, 8, 32, 16, torch.float32, dev)
+    with pytest.raises(ValueError, match="d_state"):
+        tcuda.selective_scan(x, dt, A[:, :12], B[..., :12], C[..., :12], D)
+    with pytest.raises(ValueError, match="contiguous"):
+        tcuda.selective_scan(x.transpose(1, 2).contiguous().transpose(1, 2),
+                             dt, A, B, C, D)
+    with pytest.raises(ValueError, match="dtype"):
+        tcuda.selective_scan(x, dt, A, B.to(torch.bfloat16), C, D)
+
+
 def test_engine_on_card_matches_plain_path(dev):
     """The smoke engine on the card (CUDA kernels) against the same engine
     on the CPU (plain versions), f32: identical virtual timing, tokens
@@ -223,6 +284,53 @@ def test_engine_on_card_matches_plain_path(dev):
             eng = ServingEngine(m, p, sched, lat, num_slots=4, max_seq=64,
                                 capacity_tokens=100, device=m.device, **kw)
             outs.append(eng.run(trace(), max_iterations=4000))
+        assert timing_fingerprint(outs[0]) == timing_fingerprint(outs[1])
+        flips = audit_flips(cpu, params, outs[0], outs[1])
+        assert all_flips_documented(flips), flips
+
+
+def test_ssm_engine_on_card_matches_plain_path(dev):
+    """The falcon-mamba smoke engine on the card (scan kernel) against the
+    same engine on the CPU (plain versions), f32, in both preemption
+    modes: identical virtual timing, tokens identical up to near-ties."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import (TPU_V5E, LatencyModel, QoESpec,
+                                  SchedulerConfig, make_scheduler)
+    from repro_torch.models import Model
+    from repro_torch.serving import (Request, ServingEngine,
+                                     all_flips_documented, audit_flips,
+                                     timing_fingerprint)
+    cfg = get_smoke_config("falcon-mamba-7b")
+    cpu = Model(cfg, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    gpu = Model(cfg, device=dev)
+    gparams = _to(params, dev)
+
+    def trace():
+        rng = np.random.default_rng(0)
+        out = []
+        for i in range(12):
+            n = int(rng.integers(5, 30))
+            out.append(Request(
+                rid=i, arrival=i * 0.01, prompt_len=n, output_len=14,
+                spec=QoESpec(ttft=1.0, tds=4.8),
+                prompt_tokens=rng.integers(0, cfg.vocab_size, n)))
+        return out
+
+    for mode in ("swap", "recompute"):
+        outs, engs = [], []
+        n0 = tcuda.launches["selective_scan"]
+        for m, p in ((cpu, params), (gpu, gparams)):
+            lat = LatencyModel(cfg, TPU_V5E)
+            sched = make_scheduler("andes", 100, lat,
+                                   SchedulerConfig(delta_t=2.0))
+            eng = ServingEngine(m, p, sched, lat, num_slots=4, max_seq=64,
+                                capacity_tokens=100, preemption_mode=mode,
+                                device=m.device)
+            outs.append(eng.run(trace(), max_iterations=4000))
+            engs.append(eng)
+        assert engs[1].preemptions > 0
+        assert tcuda.launches["selective_scan"] > n0
         assert timing_fingerprint(outs[0]) == timing_fingerprint(outs[1])
         flips = audit_flips(cpu, params, outs[0], outs[1])
         assert all_flips_documented(flips), flips
