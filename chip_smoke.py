@@ -9,7 +9,9 @@ bf16 weights made from a seed — and holds every hand-written CUDA kernel
 on those paths against its plain PyTorch version. Phases, in order:
 
 1. the device: name and power limit from nvidia-smi;
-2. build the CUDA kernels (one nvcc per source, in parallel);
+2. build the CUDA kernels (one nvcc per source, in parallel), and count
+   the tensor-core instructions (HGMMA/HMMA) in each library's SASS: the
+   flash library must have some;
 3. each kernel against its plain version at the main path's shapes, with
    its time, the plain version's time, the time of one PyTorch library
    call computing the same function where there is one (SDPA; a yardstick
@@ -18,7 +20,9 @@ on those paths against its plain PyTorch version. Phases, in order:
    bf16 tensor-core FLOPs for attention; f32 FLOPs and SFU exponentials
    for the scan). Attention in bf16 (tolerance 2e-2 absolute); the
    selective scan in bf16 (2e-2 relative to max |y|, final state 1e-4)
-   and once in f32 (1e-5);
+   and once in f32 (1e-5). Also timed: flash at 1 x 512 (the engine's
+   usual prefill group) and decode at B=1, each beside SDPA and its
+   bound; the paged kernel must equal the contiguous one bitwise;
 4. the smoke-size engines on the card against the same engines on the CPU
    (plain versions), f32, with a capacity that forces preemption: llama3
    over the contiguous cache and the page pool, falcon-mamba in swap and
@@ -28,7 +32,9 @@ on those paths against its plain PyTorch version. Phases, in order:
    (page 16, paged decode kernel) and over the contiguous cache (decode
    kernel), with the launch counters set to 0 before and read after. Both
    runs must finish every request with its full output, share one timing
-   fingerprint, and agree on tokens up to bf16 near-ties;
+   fingerprint, and agree on tokens up to bf16 near-ties; every flash
+   launch must have run the tensor-core body, and the decode plan of
+   that cache must split it;
 6. the full-width falcon-mamba-7b engine, twice over the contiguous state
    cache: with ample capacity and with a capacity that forces swap
    preemptions, the launch counters set to 0 before each run and read
@@ -196,74 +202,96 @@ def check_kernels(torch):
         plain_ms = time_ms(torch, plain, flush, iters=5, warmup=1)
         lib_ms = time_ms(torch, lib, flush) if lib is not None else None
         b_ms, b_by = bound_ms(nbytes, (flops, BF16_FLOPS))
+        vs = (f" ({lib_ms / ms:.2f}x SDPA's speed)" if lib_ms is not None
+              else "")
         print(f"  {name}{extra}: max|err| {err:.3e} (tol {BF16_TOL})  "
               f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
               f"library {('%.4f ms' % lib_ms) if lib_ms is not None else 'n/a'}"
-              f"  bound {b_ms:.4f} ms ({b_by})", flush=True)
+              f"  bound {b_ms:.4f} ms ({b_by}){vs}", flush=True)
         if not err <= BF16_TOL:
             fail(f"{name}{extra} disagrees with its plain version: {err}")
         return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
+    def decode_case(b, lengths, extra=""):
+        """Decode over a (b, 1024, 8, 128) cache; returns the inputs."""
+        s = 1024
+        q = rnd(b, h, hd)
+        k, v = rnd(b, s, kv, hd), rnd(b, s, kv, hd)
+        lengths = lengths.cuda()
+        ctx = int(lengths.sum())
+        nbytes = 2 * ctx * kv * hd * 2 + 2 * b * h * hd * 2 + b * 4
+        mask = (torch.arange(s, device="cuda")[None, :] < lengths[:, None])
+        qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        lib = (lambda: sdpa(qs, ks, vs, attn_mask=mask[:, None, None, :],
+                            enable_gqa=True)) if sdpa else None
+        row = record(
+            "decode_attention", kc.decode_attention(q, k, v, lengths),
+            ref.decode_attention_ref(q, k, v, lengths),
+            lambda: kc.decode_attention(q, k, v, lengths),
+            lambda: ref.decode_attention_ref(q, k, v, lengths), lib,
+            nbytes, 4 * h * hd * ctx, extra=extra)
+        return row, (q, k, v, lengths, ctx, nbytes)
+
     # ---- decode: B=8, H=32, KV=8, hd=128, cache depth 1024, ragged ----
-    b, s, h, kv, hd = 8, 1024, 32, 8, 128
-    q = rnd(b, h, hd)
-    k, v = rnd(b, s, kv, hd), rnd(b, s, kv, hd)
-    lengths = torch.randint(1, s + 1, (b,), generator=gen).to(torch.int32)
-    lengths[0] = s
-    lengths = lengths.cuda()
-    ctx = int(lengths.sum())
-    kv_bytes = 2 * ctx * kv * hd * 2
-    io_bytes = 2 * b * h * hd * 2 + b * 4
-    dec_flops = 4 * h * hd * ctx
-    mask = (torch.arange(s, device="cuda")[None, :] < lengths[:, None])
-    qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-    lib = (lambda: sdpa(qs, ks, vs, attn_mask=mask[:, None, None, :],
-                        enable_gqa=True)) if sdpa else None
-    rows["decode_attention"] = record(
-        "decode_attention", kc.decode_attention(q, k, v, lengths),
-        ref.decode_attention_ref(q, k, v, lengths),
-        lambda: kc.decode_attention(q, k, v, lengths),
-        lambda: ref.decode_attention_ref(q, k, v, lengths), lib,
-        kv_bytes + io_bytes, dec_flops)
+    h, kv, hd = 32, 8, 128
+    lengths = torch.randint(1, 1024 + 1, (8,), generator=gen).to(torch.int32)
+    lengths[0] = 1024
+    rows["decode_attention"], (q, k, v, lengths, ctx, nbytes) = decode_case(
+        8, lengths)
+    dense = kc.decode_attention(q, k, v, lengths)
 
     # ---- paged: the same, page 16 (main path) and page 1 --------------
     for page in (16, 1):
         kp, vp, bt = _paginate(torch, k, v, lengths, page, gen)
         tab_bytes = sum(-(-int(n) // page) for n in lengths.tolist()) * 4
+        out = kc.paged_decode_attention(q, kp, vp, bt, lengths)
+        if not torch.equal(out, dense):
+            fail(f"paged decode (page {page}) is not bitwise the contiguous "
+                 "kernel")
         r = record(
-            "paged_decode_attention",
-            kc.paged_decode_attention(q, kp, vp, bt, lengths),
+            "paged_decode_attention", out,
             ref.paged_decode_attention_ref(q, kp, vp, bt, lengths),
             lambda: kc.paged_decode_attention(q, kp, vp, bt, lengths),
             lambda: ref.paged_decode_attention_ref(q, kp, vp, bt, lengths),
-            None, kv_bytes + io_bytes + tab_bytes, dec_flops,
-            extra=f" (page {page})")
+            None, nbytes + tab_bytes, 4 * h * hd * ctx,
+            extra=f" (page {page}, bitwise the contiguous kernel)")
         if page == 16:
             rows["paged_decode_attention"] = r
         del kp, vp
+    del q, k, v, dense
+    # ---- decode at B=1, full depth: one request decoding alone ---------
+    decode_case(1, torch.tensor([1024], dtype=torch.int32), extra=" (B=1)")
+
+    def flash_case(lengths, extra=""):
+        """Causal prefill of len(lengths) rows of a 512 bucket."""
+        b, s = len(lengths), 512
+        q = rnd(b, s, h, hd)
+        k, v = rnd(b, s, kv, hd), rnd(b, s, kv, hd)
+        lengths = torch.tensor(lengths, dtype=torch.int32).cuda()
+        qpos = torch.arange(s, device="cuda")
+        valid = ((qpos[None, None, :] <= qpos[None, :, None])
+                 & (qpos[None, None, :] < lengths[:, None, None]))
+        pairs = int(valid.sum())
+        kv_rows = int(lengths.sum())
+        nbytes = 2 * (2 * b * s * h * hd) + 2 * 2 * kv_rows * kv * hd + b * 4
+        lib = (lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), attn_mask=valid[:, None],
+                            enable_gqa=True)) if sdpa else None
+        return record(
+            "flash_attention",
+            kc.flash_attention(q, k, v, causal=True, lengths=lengths),
+            ref.attention_ref(q, k, v, causal=True, lengths=lengths),
+            lambda: kc.flash_attention(q, k, v, causal=True, lengths=lengths),
+            lambda: ref.attention_ref(q, k, v, causal=True, lengths=lengths),
+            lib, nbytes, 4 * h * hd * pairs, extra=extra)
 
     # ---- prefill: B=4, bucket 512, ragged lengths, causal -------------
-    b, s = 4, 512
-    q = rnd(b, s, h, hd)
-    k, v = rnd(b, s, kv, hd), rnd(b, s, kv, hd)
-    lengths = torch.tensor([512, 389, 200, 64], dtype=torch.int32).cuda()
-    qpos = torch.arange(s, device="cuda")
-    valid = ((qpos[None, None, :] <= qpos[None, :, None])
-             & (qpos[None, None, :] < lengths[:, None, None]))
-    pairs = int(valid.sum())
-    kv_rows = int(lengths.sum())
-    pre_bytes = 2 * (2 * b * s * h * hd) + 2 * 2 * kv_rows * kv * hd + b * 4
-    lib = (lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), attn_mask=valid[:, None],
-                        enable_gqa=True)) if sdpa else None
-    rows["flash_attention"] = record(
-        "flash_attention",
-        kc.flash_attention(q, k, v, causal=True, lengths=lengths),
-        ref.attention_ref(q, k, v, causal=True, lengths=lengths),
-        lambda: kc.flash_attention(q, k, v, causal=True, lengths=lengths),
-        lambda: ref.attention_ref(q, k, v, causal=True, lengths=lengths),
-        lib, pre_bytes, 4 * h * hd * pairs)
+    rows["flash_attention"] = flash_case([512, 389, 200, 64])
+    # ---- prefill: 1 x 512, the engine's usual group --------------------
+    flash_case([512], extra=" (1 x 512)")
+    print(f"  launches by body (phase 3): {dict(kc.variant_launches)}",
+          flush=True)
     rows["selective_scan"] = check_scan(torch, flush, gen)
     del flush
     torch.cuda.empty_cache()
@@ -530,12 +558,14 @@ def timed_run(torch, model, params, trace, name, **kw):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = dict(kc.launches)
+    launches.update(kc.variant_launches)
     report_run(name, eng, out, timers, wall, launches)
     return out, eng, launches, timers
 
 
 def check_full_engine(torch):
     from repro_torch.configs.llama3_8b import CONFIG
+    from repro_torch.kernels import cuda as kc
     from repro_torch.serving import timing_fingerprint
 
     model, params = full_width_model(torch, CONFIG)
@@ -544,6 +574,7 @@ def check_full_engine(torch):
                   capacity=8 * 1024)
     runs = {}
     launches = dict.fromkeys(ATTENTION_KERNELS, 0)
+    launches["flash_attention/tensor_core"] = 0
     for name, kw in (("paged16", dict(page_size=16)),
                      ("contiguous", dict())):
         runs[name], _, n, _ = timed_run(torch, model, params, trace, name,
@@ -553,6 +584,18 @@ def check_full_engine(torch):
     for k, n in launches.items():
         if n <= 0:
             fail(f"kernel {k} was never launched on the llama3 main path")
+    tc = launches.pop("flash_attention/tensor_core")
+    if tc != launches["flash_attention"]:
+        fail(f"{launches['flash_attention'] - tc} flash launches of the "
+             "bf16 llama3 runs did not run the tensor-core body")
+    chunk, splits = kc.decode_plan(common["max_seq"], common["num_slots"],
+                                   CONFIG.num_kv_heads, CONFIG.head_dim, 2)
+    if splits < 2:
+        fail(f"the decode plan of the llama3 cache does not split it: "
+             f"{splits} split of {chunk}")
+    print(f"  all {tc} flash launches ran the tensor-core body; decode and "
+          f"paged decode split each (row, kv head) into {splits} chunks of "
+          f"{chunk} positions", flush=True)
     a, b = runs["paged16"], runs["contiguous"]
     if timing_fingerprint(a) != timing_fingerprint(b):
         fail("paged and contiguous engines differ in timing")
@@ -709,6 +752,14 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    {name}: {line.strip()}")
+
+    for name in build.SOURCES:
+        text = build.sass(name)
+        counts = {op: text.count(op + ".") for op in ("HGMMA", "HMMA")}
+        print(f"    {name}: tensor-core instructions in SASS {counts}",
+              flush=True)
+        if name == "flash_attention" and not sum(counts.values()):
+            fail("the flash library has no tensor-core instruction")
 
     print("[3] kernels vs plain versions (main-path shapes; "
           f"{card}):", flush=True)

@@ -94,6 +94,18 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, float]:
     return secs
 
 
+def sass(name: str) -> str:
+    """The SASS of library `name` as `cuobjdump -sass` prints it (the
+    library is built first if needed)."""
+    build_all([name])
+    tool = Path(nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(_lib_path(name))],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed on {name}: {out.stderr}")
+    return out.stdout
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library `name`, built first if needed."""
     lib = _libs.get(name)

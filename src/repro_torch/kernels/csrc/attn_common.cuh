@@ -1,5 +1,6 @@
 // Shared helpers for the attention kernels: dtype conversion, vector loads,
-// the masking constant, and the dtype codes of the plain C interface.
+// the masking constant, the dtype codes of the plain C interface, and the
+// PTX wrappers for cp.async, ldmatrix and the bf16 tensor-core mma.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -47,6 +48,61 @@ __device__ __forceinline__ void load_f32(const T* __restrict__ p, float (&o)[N])
 #pragma unroll
     for (int i = 0; i < N; ++i) o[i] = to_f32(p[i]);
   }
+}
+
+// ---- asynchronous copies (sm_80+) ---------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Copy 16 bytes global -> shared without staging in registers. With
+// src_bytes 0 nothing is read and the 16 shared bytes are zero-filled (the
+// ragged edge of a tile); `src` must still be a valid address.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes = 16) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// wait until at most N of this thread's committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ---- tensor-core fragments (mma.sync m16n8k16, bf16 in, f32 accumulate) --
+
+// Four 8x8 b16 matrices from shared memory; lane i gives the address of
+// row i % 8 of matrix i / 8 and receives, of matrix j, in r[j], row i / 4,
+// columns 2 (i % 4) and 2 (i % 4) + 1 (transposed with TRANS).
+template <bool TRANS>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  if constexpr (TRANS)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_addr(p)));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_addr(p)));
+}
+
+// d (16x8 f32) += a (16x16 bf16, row-major) * b (16x8 bf16, column-major)
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 -> one register of two bf16 (x in the low half), round to nearest
+__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<uint32_t*>(&h);
 }
 
 }  // namespace repro_attn

@@ -13,18 +13,45 @@
 // What bounds it on an H100: operations. A 512-token causal prefill does
 // ~2 * 512 / 2 FLOPs per byte of K/V read per head, well past the ridge,
 // so the least time is the causal FLOPs over the bf16 tensor-core peak.
-// This first kernel runs the products on CUDA cores (f32 FMA), so it sits
-// far from that bound: tensor cores (mma.sync / wgmma) are later work.
 //
-// Design: one block per (64-query tile, query head, batch row), 256
-// threads. Q, K and V tiles are staged in shared memory as f32 with rows
-// padded by one word (no bank conflicts on the column walks); each thread
-// owns a 4 x 4 block of the 64 x 64 score tile and a 4 x (hd / 16) block
-// of the output. Online softmax in f32 with row max / sum reduced across
-// the 16 threads that share rows (shuffles inside a half warp). The key
-// loop runs only over tiles that can hold an unmasked key: from the
-// window's left edge to min(length, last causal position), which is the
-// TPU kernel's skip of fully masked tiles. GQA maps query head h to kv
+// Two bodies, chosen by dtype (not a fallback: a bf16 tensor always runs
+// the tensor-core body, an f32 tensor the CUDA-core one):
+//
+// bf16 — flash_mma_kernel, tensor cores. One block of 4 or 8 warps per
+// (query head, batch row, 64- or 128-query tile); each warp owns 16 query
+// rows. The wrapper takes the taller tile when the grid still has about
+// a block per SM (kernels/cuda.py:flash_plan); the two measured within a
+// few percent of each other, so K/V re-reads from L2 are not what bounds
+// this body.
+// Q, K and V tiles stay bf16 in shared memory, rows padded by 16 bytes so
+// that every ldmatrix phase hits 8 distinct bank groups (row strides of
+// 80, 144, 176 and 272 bytes for hd 32, 64, 80 and 128). S = Q K^T and
+// O += P V run as mma.sync.m16n8k16 (bf16 in, f32 accumulate); P goes
+// from the S accumulator registers straight into the A operand, rounded to
+// bf16, and never touches shared memory. The online softmax works on the
+// accumulator fragments: a thread holds two rows, and the row max and sum
+// reduce over the 4 threads of a quad by shuffles. K/V tiles arrive by
+// cp.async into a 2-stage ring, so the next tile's copy overlaps this
+// tile's math; tiles past Sk are zero-filled by the copy. mma.sync was
+// chosen over wgmma/TMA as the simpler step that still runs at
+// tensor-core rates: its fragment layout is fixed by the PTX ISA, so the
+// masks below are written against one documented layout, and there are
+// no TMA descriptors or smem swizzle modes to get wrong. Query tiles are
+// issued heaviest (last) first, on the grid's slowest axis, so the causal
+// tail does not run alone at the end. hd is any multiple of 16 (32, 64,
+// 80 = 5 x 16, 128).
+//
+// f32 — flash_kernel, CUDA cores. Tensor cores would need TF32, which
+// keeps ~3 decimal digits and breaks the f32 agreement the tests hold the
+// card to. One block per (64-query tile, query head, batch row), 256
+// threads; Q, K and V staged in shared memory as f32 with rows padded by
+// one word; each thread owns a 4 x 4 block of the score tile and a
+// 4 x (hd / 16) block of the output; the score tile goes through shared
+// memory for the P V product.
+//
+// Both bodies loop only over key tiles that can hold an unmasked key: from
+// the window's left edge to min(length, last causal position), which is
+// the TPU kernel's skip of fully masked tiles. GQA maps query head h to kv
 // head h / (H / KV) in the address computation, as the TPU kernel's index
 // map does.
 
@@ -177,40 +204,286 @@ flash_kernel(const T* __restrict__ q,         // (B, Sq, H, hd)
   }
 }
 
-template <typename T, int HD, bool CAUSAL>
-int launch(const void* q, const void* k, const void* v, const void* lengths,
-           const void* q_offset, void* out, int B, int Sq, int Sk, int H, int KV,
-           int window, float sm_scale, cudaStream_t stream) {
+// ---- bf16: tensor cores ------------------------------------------------
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// WARPS warps of 16 query rows each: a query tile of 16 * WARPS rows
+template <int HD, int WARPS>
+constexpr int mma_smem_bytes() {
+  return (16 * WARPS + 4 * BK) * (HD + 8) * 2;  // Q, two K stages, two V stages
+}
+
+template <int HD, bool CAUSAL, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32)
+flash_mma_kernel(const __nv_bfloat16* __restrict__ q,  // (B, Sq, H, hd)
+                 const __nv_bfloat16* __restrict__ k,  // (B, Sk, KV, hd)
+                 const __nv_bfloat16* __restrict__ v,
+                 const int* __restrict__ lengths,    // (B,) or null
+                 const int* __restrict__ q_offset,   // (B,) or null
+                 __nv_bfloat16* __restrict__ out,    // (B, Sq, H, hd)
+                 int Sq, int Sk, int H, int KV, int window, float scale_log2) {
+  static_assert(HD % 16 == 0, "hd must be a multiple of the mma depth");
+  constexpr int BQ = 16 * WARPS;
+  constexpr int MMA_NT = 32 * WARPS;
+  constexpr int LDS = HD + 8;  // bf16 per shared row: 16 bytes of padding
+  constexpr int VPR = HD / 8;  // 16-byte vectors per row
+  constexpr int KS = HD / 16;  // k-steps of Q K^T
+  constexpr int NO = HD / 8;   // n8 tiles of the output
+  constexpr int NS = BK / 8;   // n8 tiles of the score tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Ks = Qs + BQ * LDS;
+  __nv_bfloat16* Vs = Ks + 2 * BK * LDS;
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // heaviest tile first
+  const int kvh = h / (H / KV);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gr = lane >> 2;  // accumulator rows gr and gr + 8
+  const int tc = lane & 3;   // accumulator columns 2 tc, 2 tc + 1
+  const int qoff = q_offset ? q_offset[b] : 0;
+  const int len = lengths ? min(lengths[b], Sk) : Sk;
+
+  int kend = len;
+  if (CAUSAL) kend = min(kend, qoff + min(q0 + BQ, Sq));
+  int kstart = 0;
+  if (window >= 0) kstart = max(0, qoff + q0 - window + 1);
+  kstart = (kstart / BK) * BK;
+  const int ntiles = kend > kstart ? (kend - kstart + BK - 1) / BK : 0;
+
+  const size_t qstride = (size_t)H * HD;
+  const size_t kstride = (size_t)KV * HD;
+  const __nv_bfloat16* qb = q + ((size_t)b * Sq * H + h) * HD;
+  const __nv_bfloat16* kb = k + ((size_t)b * Sk * KV + kvh) * HD;
+  const __nv_bfloat16* vb = v + ((size_t)b * Sk * KV + kvh) * HD;
+
+  for (int i = tid; i < BQ * VPR; i += MMA_NT) {
+    const int r = i / VPR, c = i % VPR, qi = q0 + r;
+    cp_async16(Qs + r * LDS + c * 8, qb + (size_t)min(qi, Sq - 1) * qstride + c * 8,
+               qi < Sq ? 16 : 0);
+  }
+  auto load_kv = [&](int k0, int stage) {
+    __nv_bfloat16* kd = Ks + stage * BK * LDS;
+    __nv_bfloat16* vd = Vs + stage * BK * LDS;
+    for (int i = tid; i < BK * VPR; i += MMA_NT) {
+      const int r = i / VPR, c = i % VPR, kp = k0 + r;
+      const size_t off = (size_t)min(kp, Sk - 1) * kstride + c * 8;
+      const int n = kp < Sk ? 16 : 0;  // past Sk: zero-filled
+      cp_async16(kd + r * LDS + c * 8, kb + off, n);
+      cp_async16(vd + r * LDS + c * 8, vb + off, n);
+    }
+  };
+  if (ntiles > 0) load_kv(kstart, 0);
+  cp_async_commit();
+
+  float o[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.f, 0.f};
+  uint32_t qf[KS][4];
+  const int qpos0 = qoff + q0 + warp * 16 + gr;  // absolute position of row gr
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = kstart + it * BK;
+    const int st = it & 1;
+    if (it + 1 < ntiles) load_kv(k0 + BK, st ^ 1);  // overlaps this tile's math
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        ldmatrix_x4<false>(qf[kk], Qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS +
+                                       kk * 16 + (lane >> 4) * 8);
+    }
+    const __nv_bfloat16* kt = Ks + st * BK * LDS;
+    const __nv_bfloat16* vt = Vs + st * BK * LDS;
+
+    // S = Q K^T: K rows are the n index, stored k-contiguous (col-major B)
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t f[4];
+        ldmatrix_x4<false>(f, kt + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LDS + kk * 16 +
+                                  ((lane >> 3) & 1) * 8);
+        mma_bf16_16816(s[2 * np], qf[kk], f[0], f[1]);
+        mma_bf16_16816(s[2 * np + 1], qf[kk], f[2], f[3]);
+      }
+
+    // scale into the log2 domain; mask only tiles that cross an edge.
+    // Accumulator element e of n-tile j: row gr + 8 (e >> 1), key
+    // k0 + 8 j + 2 tc + (e & 1).
+    const bool full = k0 + BK <= len && (!CAUSAL || k0 + BK - 1 <= qoff + q0) &&
+                      (window < 0 || k0 > qoff + q0 + BQ - 1 - window);
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (!full) {
+          const int kp = k0 + j * 8 + tc * 2 + (e & 1);
+          const int qp = qpos0 + (e >> 1) * 8;
+          const bool ok =
+              kp < len && (!CAUSAL || kp <= qp) && (window < 0 || kp > qp - window);
+          x = ok ? x : NEG_INF;
+        }
+        s[j][e] = x;
+      }
+
+    // online softmax on the fragments: a row's 4 threads form a quad
+    float alpha[2];
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      float mx = m[hi];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * hi], s[j][2 * hi + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // a row with no unmasked key yet keeps max NEG_INF: subtract 0 so
+      // that its masked scores give exp2(NEG_INF) = 0, not exp2(0) = 1
+      const float ms = mx == NEG_INF ? 0.f : mx;
+      alpha[hi] = exp2f(m[hi] - ms);
+      m[hi] = mx;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        s[j][2 * hi] = exp2f(s[j][2 * hi] - ms);
+        s[j][2 * hi + 1] = exp2f(s[j][2 * hi + 1] - ms);
+        rs += s[j][2 * hi] + s[j][2 * hi + 1];
+      }
+      l[hi] = l[hi] * alpha[hi] + rs;  // this thread's columns; quad-reduced at the end
+    }
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+
+    // O += P V: P's A fragment is the S accumulators of n-tiles 2 kk and
+    // 2 kk + 1, rounded to bf16; V rows are the k index (ldmatrix.trans)
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int np = 0; np < NO / 2; ++np) {
+        uint32_t f[4];
+        ldmatrix_x4<true>(f, vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS +
+                                 np * 16 + (lane >> 4) * 8);
+        mma_bf16_16816(o[2 * np], a, f[0], f[1]);
+        mma_bf16_16816(o[2 * np + 1], a, f[2], f[3]);
+      }
+    }
+    __syncthreads();  // this stage's readers are done before it is refilled
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    l[hi] += __shfl_xor_sync(0xffffffffu, l[hi], 1);
+    l[hi] += __shfl_xor_sync(0xffffffffu, l[hi], 2);
+  }
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int qi = q0 + warp * 16 + gr + hi * 8;
+    if (qi >= Sq) continue;
+    const float inv = l[hi] == 0.f ? 0.f : 1.f / l[hi];
+    __nv_bfloat16* orow = out + (((size_t)b * Sq + qi) * H + h) * HD + tc * 2;
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+      *reinterpret_cast<uint32_t*>(orow + j * 8) =
+          pack_bf16(o[j][2 * hi] * inv, o[j][2 * hi + 1] * inv);
+  }
+}
+
+// ---- launches ------------------------------------------------------------
+
+template <int HD, bool CAUSAL>
+int launch_f32(const void* q, const void* k, const void* v, const void* lengths,
+               const void* q_offset, void* out, int B, int Sq, int Sk, int H, int KV,
+               int window, float sm_scale, cudaStream_t stream) {
   constexpr int bytes = smem_floats<HD>() * int(sizeof(float));
-  auto kern = flash_kernel<T, HD, CAUSAL>;
+  auto kern = flash_kernel<float, HD, CAUSAL>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kern<<<grid, NT, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(lengths), static_cast<const int*>(q_offset),
-      static_cast<T*>(out), Sq, Sk, H, KV, window, sm_scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const int*>(lengths),
+      static_cast<const int*>(q_offset), static_cast<float*>(out), Sq, Sk, H, KV, window,
+      sm_scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool CAUSAL>
-int dispatch(int hd, const void* q, const void* k, const void* v, const void* lengths,
-             const void* q_offset, void* out, int B, int Sq, int Sk, int H, int KV,
-             int window, float sm_scale, cudaStream_t st) {
+template <int HD, bool CAUSAL, int WARPS>
+int launch_bf16(const void* q, const void* k, const void* v, const void* lengths,
+                const void* q_offset, void* out, int B, int Sq, int Sk, int H, int KV,
+                int window, float sm_scale, cudaStream_t stream) {
+  constexpr int bytes = mma_smem_bytes<HD, WARPS>();
+  auto kern = flash_mma_kernel<HD, CAUSAL, WARPS>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(H, B, (Sq + 16 * WARPS - 1) / (16 * WARPS));
+  kern<<<grid, 32 * WARPS, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(lengths),
+      static_cast<const int*>(q_offset), static_cast<__nv_bfloat16*>(out), Sq, Sk, H, KV,
+      window, sm_scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+template <int HD, bool CAUSAL>
+int launch(int dtype, int warps, const void* q, const void* k, const void* v,
+           const void* lengths, const void* q_offset, void* out, int B, int Sq, int Sk,
+           int H, int KV, int window, float sm_scale, cudaStream_t st) {
+  if (dtype == DTYPE_F32)
+    return launch_f32<HD, CAUSAL>(q, k, v, lengths, q_offset, out, B, Sq, Sk, H, KV, window,
+                                  sm_scale, st);
+  if (dtype == DTYPE_BF16 && warps == 4)
+    return launch_bf16<HD, CAUSAL, 4>(q, k, v, lengths, q_offset, out, B, Sq, Sk, H, KV,
+                                      window, sm_scale, st);
+  if (dtype == DTYPE_BF16 && warps == 8)
+    return launch_bf16<HD, CAUSAL, 8>(q, k, v, lengths, q_offset, out, B, Sq, Sk, H, KV,
+                                      window, sm_scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool CAUSAL>
+int dispatch(int dtype, int warps, int hd, const void* q, const void* k, const void* v,
+             const void* lengths, const void* q_offset, void* out, int B, int Sq, int Sk,
+             int H, int KV, int window, float sm_scale, cudaStream_t st) {
+#define REPRO_HD_CASE(HD)                                                                \
+  case HD:                                                                              \
+    return launch<HD, CAUSAL>(dtype, warps, q, k, v, lengths, q_offset, out, B, Sq, Sk, H, \
+                              KV, window, sm_scale, st);
   switch (hd) {
-    case 32:
-      return launch<T, 32, CAUSAL>(q, k, v, lengths, q_offset, out, B, Sq, Sk, H, KV,
-                                   window, sm_scale, st);
-    case 64:
-      return launch<T, 64, CAUSAL>(q, k, v, lengths, q_offset, out, B, Sq, Sk, H, KV,
-                                   window, sm_scale, st);
-    case 128:
-      return launch<T, 128, CAUSAL>(q, k, v, lengths, q_offset, out, B, Sq, Sk, H, KV,
-                                    window, sm_scale, st);
+    REPRO_HD_CASE(32)
+    REPRO_HD_CASE(64)
+    REPRO_HD_CASE(80)
+    REPRO_HD_CASE(128)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef REPRO_HD_CASE
 }
 
 }  // namespace
@@ -218,25 +491,22 @@ int dispatch(int hd, const void* q, const void* k, const void* v, const void* le
 extern "C" {
 
 // q (B, Sq, H, hd); k, v (B, Sk, KV, hd); lengths, q_offset (B,) int32 or
-// null; out (B, Sq, H, hd). window < 0 means no window. Returns
-// cudaGetLastError() after the launch (or the attribute call's error).
+// null; out (B, Sq, H, hd). window < 0 means no window. bf16 runs the
+// tensor-core body with query tiles of 16 * warps rows (warps 4 or 8), f32
+// the CUDA-core one (warps unused); hd in {32, 64, 80, 128}.
+// Returns cudaGetLastError() after the launch (or the attribute call's
+// error); an empty output launches nothing.
 int flash_attention(int dtype, const void* q, const void* k, const void* v,
                     const void* lengths, const void* q_offset, void* out, int B, int Sq,
                     int Sk, int H, int KV, int hd, int causal, int window, float sm_scale,
-                    void* stream) {
+                    int warps, void* stream) {
   if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
+  if (B == 0 || Sq == 0 || H == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == DTYPE_F32)
-    return causal ? dispatch<float, true>(hd, q, k, v, lengths, q_offset, out, B, Sq, Sk, H,
-                                          KV, window, sm_scale, st)
-                  : dispatch<float, false>(hd, q, k, v, lengths, q_offset, out, B, Sq, Sk,
-                                           H, KV, window, sm_scale, st);
-  if (dtype == DTYPE_BF16)
-    return causal ? dispatch<__nv_bfloat16, true>(hd, q, k, v, lengths, q_offset, out, B, Sq,
-                                                  Sk, H, KV, window, sm_scale, st)
-                  : dispatch<__nv_bfloat16, false>(hd, q, k, v, lengths, q_offset, out, B,
-                                                   Sq, Sk, H, KV, window, sm_scale, st);
-  return (int)cudaErrorInvalidValue;
+  return causal ? dispatch<true>(dtype, warps, hd, q, k, v, lengths, q_offset, out, B, Sq, Sk,
+                                 H, KV, window, sm_scale, st)
+                : dispatch<false>(dtype, warps, hd, q, k, v, lengths, q_offset, out, B, Sq,
+                                  Sk, H, KV, window, sm_scale, st);
 }
 
 }  // extern "C"

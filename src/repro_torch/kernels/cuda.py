@@ -4,13 +4,21 @@ Each wrapper checks device, dtype, shape, contiguity and alignment,
 allocates the output with ``torch.empty``, launches on PyTorch's current
 stream, raises if the launch returned a CUDA error, and adds one to its
 entry in ``launches`` — there and nowhere else, so a run can show that it
-went through the kernel. The kernels' sources and design notes are in
-``csrc/``.
+went through the kernel. ``variant_launches`` counts the flash launches
+by the body they ran (tensor-core or CUDA-core); ``flash_plan`` picks the
+tensor-core body's query-tile height from the grid's size.
+
+The decode wrappers plan their split-KV launch on the host with
+``decode_plan`` (from the cache's capacity, never from ``lengths``, which
+lives on the device) and keep, per device and stream, a scratch buffer
+for the splits' partial results and a buffer of merge counters that the
+kernel leaves at zero after every launch. The kernels' sources and design
+notes are in ``csrc/``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -24,18 +32,24 @@ launches = {
     "selective_scan": 0,
 }
 
+#: flash launches by the body they ran
+variant_launches = {
+    "flash_attention/tensor_core": 0,     # bf16: mma.sync
+    "flash_attention/cuda_core": 0,       # f32: FMA
+}
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGS = {
-    "decode_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                         _P],
-    "paged_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _F, _P],
+    "decode_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _I, _I, _I, _I, _I, _F, _P],
+    "paged_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "flash_attention": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _I, _I, _F, _P],
+                        _I, _I, _F, _I, _P],
     "selective_scan": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                        _L, _L, _L, _L, _P],
 }
@@ -49,8 +63,9 @@ _fns = {}
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, variant_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def _fn(name: str):
@@ -82,11 +97,13 @@ def _ints(name: str, t: torch.Tensor, n: int) -> torch.Tensor:
     return t.to(torch.int32).contiguous()
 
 
-def _run(name: str, *args) -> None:
+def _run(name: str, variant: Optional[str], *args) -> None:
     err = _fn(name)(*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     launches[name] += 1
+    if variant is not None:
+        variant_launches[f"{name}/{variant}"] += 1
 
 
 def _stream() -> int:
@@ -108,12 +125,89 @@ def _dtype(name: str, q: torch.Tensor) -> int:
     return _DTYPES[q.dtype]
 
 
+DECODE_HEAD_DIMS = (32, 64, 80, 128, 256)
+FLASH_HEAD_DIMS = (32, 64, 80, 128)
+#: bytes of K and V rows (16-byte padded) one decode block stages
+DECODE_KV_SMEM = 64 * 1024
+#: decode blocks to aim for: a few waves over the H100's 132 SMs
+DECODE_BLOCKS = 4 * 132
+DECODE_MIN_CHUNK = 64
+#: flash blocks (about one per SM) to keep when choosing the taller query
+#: tile; scripts/flash_tile_sweep.py measures both heights
+FLASH_MIN_BLOCKS = 128
+
+
 def _decode_shape_ok(name: str, h: int, kv: int, hd: int) -> None:
     g = h // kv if kv and h % kv == 0 else 0
-    if (g not in (1, 2, 4, 8, 16) or hd not in (32, 64, 128, 256)
+    if (g not in (1, 2, 4, 8, 16) or hd not in DECODE_HEAD_DIMS
             or g * hd > 1024):
         raise ValueError(f"{name}: unsupported heads/head_dim "
                          f"(H={h}, KV={kv}, hd={hd})")
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def decode_plan(cap: int, b: int, kv: int, hd: int,
+                itemsize: int) -> Tuple[int, int]:
+    """Split-KV launch plan -> (chunk, splits): split s covers cache
+    positions [s * chunk, min((s + 1) * chunk, cap)), so the splits cover
+    [0, cap) once and none is empty. From host-known shapes only: `cap`
+    is the cache's capacity (S, or max_pages * page). Enough splits for
+    about DECODE_BLOCKS blocks over the (kv head, row) pairs, chunks of at
+    least DECODE_MIN_CHUNK positions (a multiple of 16) and at most what
+    DECODE_KV_SMEM holds."""
+    row = hd * itemsize + 16
+    max_chunk = max(16, DECODE_KV_SMEM // (2 * row) // 16 * 16)
+    want = _cdiv(DECODE_BLOCKS, max(b * kv, 1))
+    splits = max(1, min(want, _cdiv(cap, DECODE_MIN_CHUNK)))
+    chunk = min(max_chunk, max(16, _cdiv(_cdiv(cap, splits), 16) * 16))
+    return chunk, max(1, _cdiv(cap, chunk))
+
+
+def flash_plan(b: int, sq: int, h: int) -> int:
+    """Warps per block of the tensor-core flash body (16 query rows
+    each): 8 (128-row query tiles, each K/V tile read from L2 once per
+    128 rows) when that still gives FLASH_MIN_BLOCKS blocks, else 4."""
+    return 8 if b * h * _cdiv(sq, 128) >= FLASH_MIN_BLOCKS else 4
+
+
+#: (device index, stream) -> [partials f32, merge counters int32]
+_scratch: Dict[Tuple[int, int], list] = {}
+
+
+def _decode_scratch(dev: torch.device, stream: int, n_part: int,
+                    n_counters: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The split-KV scratch of this device and stream, grown as needed.
+    Launches on one stream run in order, so they can share it; the
+    kernel returns every counter to zero."""
+    st = _scratch.setdefault((dev.index, stream), [None, None])
+    if st[0] is None or st[0].numel() < n_part:
+        st[0] = torch.empty(max(n_part, 1), dtype=torch.float32, device=dev)
+    if st[1] is None or st[1].numel() < n_counters:
+        st[1] = torch.zeros(max(n_counters, 1), dtype=torch.int32,
+                            device=dev)
+    return st[0], st[1]
+
+
+def _decode_launch(name, q, cap, kv, ptrs, dims, window, sm_scale):
+    """Plan, scratch and launch shared by both decode wrappers: `ptrs` are
+    the entry point's pointers before `out`, `dims` its ints before the
+    plan."""
+    b, h, hd = q.shape
+    code = _dtype(name, q)
+    chunk, splits = decode_plan(cap, b, kv, hd, q.element_size())
+    n_ml = b * kv * splits * (h // kv) * 2
+    stream = _stream()
+    part, counters = _decode_scratch(q.device, stream, n_ml * (hd + 2) // 2,
+                                     b * kv)
+    out = torch.empty_like(q)
+    _run(name, None, code, *ptrs,
+         out.data_ptr(), part.data_ptr(), part.data_ptr() + 4 * n_ml,
+         counters.data_ptr(), *dims, chunk, splits, _window(window),
+         _scale(sm_scale, hd), stream)
+    return out
 
 
 def decode_attention(q, k, v, lengths, *, window=None, sm_scale=None):
@@ -128,11 +222,10 @@ def decode_attention(q, k, v, lengths, *, window=None, sm_scale=None):
     lengths = _ints(name, lengths, b)
     _check(name, q, k, v, dtype=q.dtype)
     _check(name, lengths)
-    out = torch.empty_like(q)
-    _run(name, _dtype(name, q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-         lengths.data_ptr(), out.data_ptr(), b, s, h, kv, hd,
-         _window(window), _scale(sm_scale, hd), _stream())
-    return out
+    return _decode_launch(
+        name, q, s, kv,
+        (q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr()),
+        (b, s, h, kv, hd), window, sm_scale)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
@@ -151,12 +244,12 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
     lengths = _ints(name, lengths, b)
     _check(name, q, k_pool, v_pool, dtype=q.dtype)
     _check(name, bt, lengths)
-    out = torch.empty_like(q)
-    _run(name, _dtype(name, q), q.data_ptr(), k_pool.data_ptr(),
-         v_pool.data_ptr(), bt.data_ptr(), lengths.data_ptr(),
-         out.data_ptr(), b, p_total, page, bt.shape[1], h, kv, hd,
-         _window(window), _scale(sm_scale, hd), _stream())
-    return out
+    max_pages = bt.shape[1]
+    return _decode_launch(
+        name, q, max_pages * page, kv,
+        (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), bt.data_ptr(),
+         lengths.data_ptr()),
+        (b, p_total, page, max_pages, h, kv, hd), window, sm_scale)
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, lengths=None,
@@ -166,7 +259,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, lengths=None,
     name = "flash_attention"
     b, sq, h, hd = q.shape
     _, sk, kv, _ = k.shape
-    if hd not in (32, 64, 128) or kv == 0 or h % kv:
+    if hd not in FLASH_HEAD_DIMS or kv == 0 or h % kv:
         raise ValueError(f"{name}: unsupported heads/head_dim "
                          f"(H={h}, KV={kv}, hd={hd})")
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd:
@@ -180,11 +273,14 @@ def flash_attention(q, k, v, *, causal=True, window=None, lengths=None,
         offs = _ints(name, q_offset, b)
         _check(name, offs)
     out = torch.empty_like(q)
-    _run(name, _dtype(name, q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    code = _dtype(name, q)
+    _run(name, "tensor_core" if q.dtype == torch.bfloat16 else "cuda_core",
+         code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
          lens.data_ptr() if lens is not None else None,
          offs.data_ptr() if offs is not None else None,
          out.data_ptr(), b, sq, sk, h, kv, hd, int(bool(causal)),
-         _window(window), _scale(sm_scale, hd), _stream())
+         _window(window), _scale(sm_scale, hd), flash_plan(b, sq, h),
+         _stream())
     return out
 
 
@@ -218,7 +314,7 @@ def selective_scan(x, dt, A, B, C, D, *, return_state=False):
     y = torch.empty_like(x)
     h = (torch.empty((bsz, d, n), dtype=torch.float32, device=x.device)
          if return_state else None)
-    _run(name, _dtype(name, x), x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+    _run(name, None, _dtype(name, x), x.data_ptr(), dt.data_ptr(), A.data_ptr(),
          B.data_ptr(), C.data_ptr(), D.data_ptr(), y.data_ptr(),
          h.data_ptr() if h is not None else None, bsz, s, d, n,
          B.stride(0), B.stride(1), C.stride(0), C.stride(1), _stream())

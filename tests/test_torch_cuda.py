@@ -11,7 +11,11 @@ Tolerances are the reference's kernel tolerances (f32 2e-5, bf16 2e-2,
 ``tests/test_kernels.py``; the scan relative to max |y|, f32 1e-5). Where nothing is attended (length 0, or a
 window that excludes every key) the kernels write zeros — the Pallas
 convention — while the plain versions average uniformly; those rows are
-checked for zeros and left out of the comparison.
+checked for zeros and left out of the comparison. The decode kernels'
+split-KV edges (lengths at a split boundary and either side of it, a
+window that empties whole splits, the in-kernel merge's counters over two
+calls in a row) and the tensor-core flash body (bf16; f32 runs the
+CUDA-core body) are covered case by case, hd 80 included.
 """
 import numpy as np
 import pytest
@@ -67,7 +71,8 @@ def _paginate(k, v, lengths, page, seed=0):
 
 
 DECODE_SHAPES = [(3, 300, 8, 2, 64), (2, 64, 4, 4, 32),
-                 (8, 1024, 32, 8, 128), (2, 512, 16, 1, 32)]
+                 (8, 1024, 32, 8, 128), (2, 512, 16, 1, 32),
+                 (3, 256, 16, 4, 80), (1, 1024, 32, 8, 128)]
 
 
 @pytest.mark.parametrize("shape", DECODE_SHAPES)
@@ -122,6 +127,72 @@ def test_paged_kernel(dev, page, dtype):
         assert torch.equal(out, tcuda.decode_attention(q, k, v, lengths))
 
 
+@pytest.mark.parametrize("page", [1, 16, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_hd80(dev, page, dtype):
+    b, s, h, kv, hd = 3, 128, 16, 4, 80
+    q = _rand(30, (b, h, hd), dtype, dev)
+    k = _rand(31, (b, s, kv, hd), dtype, dev)
+    v = _rand(32, (b, s, kv, hd), dtype, dev)
+    lengths = torch.tensor([128, 65, 7], dtype=torch.int32, device=dev)
+    kp, vp, bt = _paginate(k, v, lengths, page, seed=page)
+    out = tcuda.paged_decode_attention(q, kp, vp, bt, lengths)
+    _close(out, tref.decode_attention_ref(q, k, v, lengths), dtype)
+    assert torch.equal(out, tcuda.decode_attention(q, k, v, lengths))
+
+
+def _split_lengths(chunk, s):
+    """Lengths at a split boundary and one either side, a row of length 0
+    among full ones, and the full depth."""
+    return [chunk, chunk + 1, chunk - 1, 0, s, 2 * chunk, s - 1]
+
+
+@pytest.mark.parametrize("page", [1, 16, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", ["none", "whole_splits"])
+def test_decode_split_boundaries(dev, dtype, window, page):
+    """Split-KV edges, contiguous and paged (bitwise equal at pages 1, 16
+    and 64), each kernel called twice on the same scratch: the merge
+    counters return to zero, so the second call gives the same bits."""
+    b, s, h, kv, hd = 7, 1024, 32, 8, 128
+    chunk, splits = tcuda.decode_plan(s, b, kv, hd, torch.tensor(
+        [], dtype=dtype).element_size())
+    assert splits > 1 and chunk < s
+    # a window a little over one chunk: whole splits before it are empty
+    win = None if window == "none" else chunk + 3
+    q = _rand(33, (b, h, hd), dtype, dev)
+    k = _rand(34, (b, s, kv, hd), dtype, dev)
+    v = _rand(35, (b, s, kv, hd), dtype, dev)
+    lengths = torch.tensor(_split_lengths(chunk, s), dtype=torch.int32,
+                           device=dev)
+    kp, vp, bt = _paginate(k, v, lengths, page, seed=page)
+    outs = [tcuda.decode_attention(q, k, v, lengths, window=win)
+            for _ in range(2)]
+    pouts = [tcuda.paged_decode_attention(q, kp, vp, bt, lengths, window=win)
+             for _ in range(2)]
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(pouts[0], pouts[1])
+    assert torch.equal(pouts[0], outs[0])
+    assert not outs[0][3].any()                     # length 0: zeros
+    live = lengths.cpu() > 0
+    _close(outs[0][live], tref.decode_attention_ref(
+        q, k, v, lengths, window=win)[live], dtype)
+
+
+def test_decode_one_row_full_depth(dev):
+    """B = 1 at depth 1024: the plan's shortest chunks, many splits."""
+    s, h, kv, hd = 1024, 32, 8, 128
+    chunk, splits = tcuda.decode_plan(s, 1, kv, hd, 2)
+    assert splits * kv >= 128        # one block per SM or so for one row
+    q = _rand(36, (1, h, hd), torch.bfloat16, dev)
+    k = _rand(37, (1, s, kv, hd), torch.bfloat16, dev)
+    v = _rand(38, (1, s, kv, hd), torch.bfloat16, dev)
+    for n in (s, s - chunk + 1, 1):
+        lengths = torch.tensor([n], dtype=torch.int32, device=dev)
+        _close(tcuda.decode_attention(q, k, v, lengths),
+               tref.decode_attention_ref(q, k, v, lengths), torch.bfloat16)
+
+
 def test_paged_kernel_window_and_main_shape(dev):
     b, s, h, kv, hd, page = 8, 1024, 32, 8, 128, 16
     q = _rand(10, (b, h, hd), torch.bfloat16, dev)
@@ -161,6 +232,15 @@ FLASH_CASES = [
     (3, 96, 96, 8, 2, 64, True, [96, 50, 1], None, 24),
     (2, 40, 100, 4, 1, 32, True, [100, 64], [60, 24], None),
     (2, 70, 70, 4, 2, 128, False, [70, 33], None, None),
+    # hd 80 (5 x 16), Sq not a multiple of the 64-row tile
+    (2, 77, 77, 8, 2, 80, True, [77, 40], None, None),
+    (2, 40, 100, 4, 1, 80, True, [100, 64], [60, 24], None),
+    # all-masked rows: length 0, and rows the window leaves nothing
+    (3, 64, 64, 4, 2, 64, True, [64, 0, 10], None, 8),
+    # several query tiles, offsets and a window over several key tiles
+    (2, 130, 300, 8, 4, 128, True, [300, 257], [170, 100], 64),
+    # the engine's usual prefill group: one row of a 512 bucket
+    (1, 512, 512, 32, 8, 128, True, [389], None, None),
 ]
 
 
@@ -176,14 +256,41 @@ def test_flash_kernel(dev, case, dtype):
     q_offset = (torch.tensor(offs, dtype=torch.int32, device=dev)
                 if offs is not None else None)
     n0 = tcuda.launches["flash_attention"]
+    body = ("flash_attention/tensor_core" if dtype == torch.bfloat16
+            else "flash_attention/cuda_core")
+    v0 = tcuda.variant_launches[body]
     out = tcuda.flash_attention(q, k, v, causal=causal, window=window,
                                 lengths=lengths, q_offset=q_offset)
     assert tcuda.launches["flash_attention"] == n0 + 1
+    assert tcuda.variant_launches[body] == v0 + 1
     expect = tref.attention_ref(q, k, v, causal=causal, window=window,
                                 lengths=lengths, q_offset=q_offset)
     rows = _attended_rows(b, sq, sk, causal, lengths, q_offset, window, dev)
     _close(out[rows], expect[rows], dtype)
     assert not out[~rows].any()                     # Pallas: zeros
+
+
+@pytest.mark.parametrize("warps", [4, 8])
+@pytest.mark.parametrize("case", [FLASH_CASES[i] for i in (2, 4, 7, 8, 9)])
+def test_flash_kernel_tile_heights(dev, case, warps, monkeypatch):
+    """The tensor-core body at both query-tile heights (64 and 128 rows),
+    whichever the wrapper's plan would pick."""
+    b, sq, sk, h, kv, hd, causal, lens, offs, window = case
+    dtype = torch.bfloat16
+    q = _rand(17, (b, sq, h, hd), dtype, dev)
+    k = _rand(18, (b, sk, kv, hd), dtype, dev)
+    v = _rand(19, (b, sk, kv, hd), dtype, dev)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q_offset = (torch.tensor(offs, dtype=torch.int32, device=dev)
+                if offs is not None else None)
+    monkeypatch.setattr(tcuda, "flash_plan", lambda *_: warps)
+    out = tcuda.flash_attention(q, k, v, causal=causal, window=window,
+                                lengths=lengths, q_offset=q_offset)
+    expect = tref.attention_ref(q, k, v, causal=causal, window=window,
+                                lengths=lengths, q_offset=q_offset)
+    rows = _attended_rows(b, sq, sk, causal, lengths, q_offset, window, dev)
+    _close(out[rows], expect[rows], dtype)
+    assert not out[~rows].any()
 
 
 SCAN_CASES = [

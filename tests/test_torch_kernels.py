@@ -63,9 +63,16 @@ def _paginate(k, v, lengths, page, seed=0):
     return k_pool, v_pool, tables
 
 
-@pytest.mark.parametrize("window", [None, 8])
-def test_decode_plain_matches_pallas(window):
-    b, s, h, kv, hd = 3, 64, 8, 2, 32
+# hd 80: the shared attention of zamba2-2.7b (2560 / 32); ids of the hd-32
+# cases stay as they were
+HD_CASES = [pytest.param(None, 32, id="None"), pytest.param(8, 32, id="8"),
+            pytest.param(None, 80, id="None-hd80"),
+            pytest.param(8, 80, id="8-hd80")]
+
+
+@pytest.mark.parametrize("window,hd", HD_CASES)
+def test_decode_plain_matches_pallas(window, hd):
+    b, s, h, kv = 3, 64, 8, 2
     q, k, v = _rand(0, (b, h, hd)), _rand(1, (b, s, kv, hd)), \
         _rand(2, (b, s, kv, hd))
     lengths = np.array([64, 17, 1], np.int32)
@@ -76,9 +83,9 @@ def test_decode_plain_matches_pallas(window):
     _close(out, expect)
 
 
-@pytest.mark.parametrize("window", [None, 8])
-def test_paged_plain_matches_pallas(window):
-    b, s, h, kv, hd, page = 3, 64, 8, 2, 32, 16
+@pytest.mark.parametrize("window,hd", HD_CASES)
+def test_paged_plain_matches_pallas(window, hd):
+    b, s, h, kv, page = 3, 64, 8, 2, 16
     q, k, v = _rand(3, (b, h, hd)), _rand(4, (b, s, kv, hd)), \
         _rand(5, (b, s, kv, hd))
     lengths = np.array([64, 30, 5], np.int32)
@@ -91,10 +98,15 @@ def test_paged_plain_matches_pallas(window):
     _close(out, expect)
 
 
-@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
-                                           (True, 24)])
-def test_attention_plain_matches_pallas_flash(causal, window):
-    b, s, h, kv, hd = 2, 96, 4, 2, 32
+@pytest.mark.parametrize("causal,window,hd", [
+    pytest.param(True, None, 32, id="True-None"),
+    pytest.param(False, None, 32, id="False-None"),
+    pytest.param(True, 24, 32, id="True-24"),
+    pytest.param(True, None, 80, id="True-None-hd80"),
+    pytest.param(False, None, 80, id="False-None-hd80"),
+    pytest.param(True, 24, 80, id="True-24-hd80")])
+def test_attention_plain_matches_pallas_flash(causal, window, hd):
+    b, s, h, kv = 2, 96, 4, 2
     q, k, v = _rand(6, (b, s, h, hd)), _rand(7, (b, s, kv, hd)), \
         _rand(8, (b, s, kv, hd))
     expect = j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
@@ -186,3 +198,56 @@ def test_unsupported_head_dim_raises_before_launch():
     k = torch.zeros(1, 8, 2, 48)
     with pytest.raises(ValueError, match="unsupported"):
         tcuda.decode_attention(q, k, k, torch.ones(1, dtype=torch.int32))
+
+
+def test_cuda_wrappers_take_hd80_and_refuse_hd48():
+    """hd 80 passes the shape checks of both kernels (it reaches the
+    device check, which a CPU tensor fails); hd 48 stays refused."""
+    for hd, match in ((80, "CUDA"), (48, "unsupported")):
+        q, k = torch.zeros(1, 4, hd), torch.zeros(1, 8, 2, hd)
+        with pytest.raises(ValueError, match=match):
+            tcuda.decode_attention(q, k, k, torch.ones(1, dtype=torch.int32))
+        with pytest.raises(ValueError, match=match):
+            tcuda.paged_decode_attention(
+                q, torch.zeros(3, 4, 2, hd), torch.zeros(3, 4, 2, hd),
+                torch.zeros(1, 2, dtype=torch.int32),
+                torch.ones(1, dtype=torch.int32))
+        with pytest.raises(ValueError, match=match):
+            tcuda.flash_attention(torch.zeros(1, 8, 4, hd), k, k)
+    assert all(n == 0 for n in tcuda.launches.values())
+
+
+@pytest.mark.parametrize("cap,b,kv,hd,itemsize", [
+    (1024, 8, 8, 128, 2),      # the llama3 main path, contiguous
+    (1024, 1, 8, 128, 2),      # one row: more, shorter splits
+    (1000, 8, 8, 128, 2),      # not a multiple of the chunk
+    (64 * 16, 8, 8, 128, 2),   # paged: max_pages 64 x page 16
+    (5 * 100, 4, 2, 64, 4),    # paged: pages deeper than a chunk
+    (37 * 1, 2, 4, 80, 4),     # paged: page 1, f32, hd 80
+    (1, 1, 1, 32, 4), (0, 3, 2, 32, 2), (70000, 2, 8, 256, 4)])
+def test_decode_plan_covers_capacity_once(cap, b, kv, hd, itemsize):
+    """Split s covers [s * chunk, min((s + 1) * chunk, cap)): together
+    [0, cap) exactly once, no split empty (for cap > 0), chunks a multiple
+    of 16 within the shared-memory budget."""
+    chunk, splits = tcuda.decode_plan(cap, b, kv, hd, itemsize)
+    assert chunk % 16 == 0 and splits >= 1
+    assert 2 * chunk * (hd * itemsize + 16) <= max(
+        tcuda.DECODE_KV_SMEM, 2 * 16 * (hd * itemsize + 16))
+    seen = np.zeros(cap, np.int64)
+    for s in range(splits):
+        lo, hi = s * chunk, min((s + 1) * chunk, cap)
+        assert hi > lo or cap == 0
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+    assert splits * chunk >= cap
+    # host-known shapes only: the same plan whatever the lengths are
+    assert tcuda.decode_plan(cap, b, kv, hd, itemsize) == (chunk, splits)
+
+
+def test_flash_plan_takes_tall_tiles_only_on_full_grids():
+    """128-row query tiles (8 warps) when the grid keeps about a block per
+    SM, 64-row tiles (4 warps) below that; H = 32 as llama3-8b."""
+    assert tcuda.flash_plan(4, 512, 32) == 8      # 512 blocks
+    assert tcuda.flash_plan(1, 512, 32) == 8      # 128 blocks
+    assert tcuda.flash_plan(1, 128, 32) == 4      # 32 blocks
+    assert tcuda.flash_plan(2, 40, 4) == 4
