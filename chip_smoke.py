@@ -20,9 +20,10 @@ on those paths against its plain PyTorch version. Phases, in order:
    bf16 tensor-core FLOPs for attention; f32 FLOPs and SFU exponentials
    for the scan). Attention in bf16 (tolerance 2e-2 absolute); the
    selective scan in bf16 (2e-2 relative to max |y|, final state 1e-4)
-   and once in f32 (1e-5). Also timed: flash at 1 x 512 (the engine's
-   usual prefill group) and decode at B=1, each beside SDPA and its
-   bound; the paged kernel must equal the contiguous one bitwise;
+   and once in f32 (1e-5). Also timed: flash and the scan at 1 x 512 (the
+   engine's usual prefill group; flash beside SDPA) and decode at B=1,
+   each beside its bound, the scan with the launch plan it took; the
+   paged kernel must equal the contiguous one bitwise;
 4. the smoke-size engines on the card against the same engines on the CPU
    (plain versions), f32, with a capacity that forces preemption: llama3
    over the contiguous cache and the page pool, falcon-mamba in swap and
@@ -298,67 +299,98 @@ def check_kernels(torch):
     return rows
 
 
-def check_scan(torch, flush, gen):
-    """The scan at the full-width prefill's shape (B=4 rows of a 512
-    bucket, d_inner 8192, N 16), as the model hands it over: B and C are
-    column slices of the x_proj output (dt_rank 256 columns first), dt is
-    zero past each row's length. Timed as the prefill calls it, with the
-    final state."""
-    from repro_torch.kernels import cuda as kc
-    from repro_torch.kernels import ref
-    b, s, d, n, r = 4, 512, 8192, 16, 256
-    lengths = torch.tensor([512, 389, 200, 64])
+def scan_inputs(torch, gen, lengths, dtype, s=512, d=8192, n=16, r=256):
+    """Scan inputs as the falcon-mamba-7b prefill hands them over (rows of
+    a bucket of `s`, d_inner `d`, N `n`, dt_rank `r`): B and C are column
+    slices of the x_proj output (dt_rank columns first), dt is zero past
+    each row's length."""
+    b = len(lengths)
+    lengths = torch.tensor(lengths)
+    x = torch.randn((b, s, d), generator=gen)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, d), generator=gen) - 1)
+    pad = torch.arange(s)[None, :, None] >= lengths[:, None, None]
+    dt = dt.masked_fill(pad, 0.0)
+    A = -torch.exp(torch.randn((d, n), generator=gen) * 0.5)
+    dbc = torch.randn((b, s, r + 2 * n), generator=gen)
+    x, dt, dbc = (t.to("cuda", dtype) for t in (x, dt, dbc))
+    return (x, dt, A.cuda(), dbc[..., r:r + n], dbc[..., r + n:],
+            torch.ones(d, device="cuda"))
 
-    def inputs(dtype):
-        x = torch.randn((b, s, d), generator=gen)
-        dt = torch.nn.functional.softplus(
-            torch.randn((b, s, d), generator=gen) - 1)
-        pad = torch.arange(s)[None, :, None] >= lengths[:, None, None]
-        dt = dt.masked_fill(pad, 0.0)
-        A = -torch.exp(torch.randn((d, n), generator=gen) * 0.5)
-        dbc = torch.randn((b, s, r + 2 * n), generator=gen)
-        x, dt, dbc = (t.to("cuda", dtype) for t in (x, dt, dbc))
-        return (x, dt, A.cuda(), dbc[..., r:r + n], dbc[..., r + n:],
-                torch.ones(d, device="cuda"))
 
-    def rel(out, expect):
-        return ((out.float() - expect.float()).abs().max()
-                / expect.float().abs().max()).item()
+def rel_err(out, expect) -> float:
+    """max |out - expect| relative to max |expect|."""
+    return ((out.float() - expect.float()).abs().max()
+            / expect.float().abs().max()).item()
 
-    errs = {}
-    for dtype, tol in ((torch.float32, F32_SCAN_TOL),
-                       (torch.bfloat16, BF16_TOL)):
-        args = inputs(dtype)
-        y, h = kc.selective_scan(*args, return_state=True)
-        torch.cuda.synchronize()
-        y_ref, h_ref = ref.selective_scan_with_state_ref(*args)
-        y_rel, h_rel = rel(y, y_ref), rel(h, h_ref)
-        errs[dtype] = (y.float() - y_ref.float()).abs().max().item()
-        print(f"  selective_scan ({str(dtype)[6:]}): max|y err| "
-              f"{errs[dtype]:.3e}, relative {y_rel:.3e} (tol {tol}); h_last "
-              f"relative {h_rel:.3e} (tol {STATE_TOL})", flush=True)
-        if not (y_rel <= tol and h_rel <= STATE_TOL):
-            fail(f"selective_scan ({dtype}) disagrees with its plain version")
-    # timed in bf16, the main path's dtype (args are the bf16 inputs)
-    ms = time_ms(torch, lambda: kc.selective_scan(*args, return_state=True),
-                 flush)
-    plain_ms = time_ms(torch,
-                       lambda: ref.selective_scan_with_state_ref(*args),
-                       flush, iters=5, warmup=1)
+
+def scan_bound(torch, b, s, d, n):
+    """The scan's bound -> (ms, by, detail): x, dt and y once, B, C, A, D
+    and h_last once, against 6 f32 FLOPs and one exp per (b, t, d, n)."""
     el = b * s * d
     nbytes = 3 * el * 2 + 2 * b * s * n * 2 + d * n * 4 + d * 4 \
         + b * d * n * 4
     flops = 6 * el * n + 3 * el
     rate = exp_rate(torch)
     b_ms, b_by = bound_ms(nbytes, (flops, F32_FLOPS), (el * n, rate))
-    print(f"  selective_scan (bf16, B={b} S={s} D={d} N={n}, with h_last): "
-          f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library none  "
-          f"bound {b_ms:.4f} ms ({b_by}: bytes "
-          f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, f32 FLOPs "
-          f"{flops / F32_FLOPS * 1e3:.4f} ms, {el * n / 1e6:.1f} M exp at "
-          f"{rate / 1e12:.3f} T/s {el * n / rate * 1e3:.4f} ms)", flush=True)
-    return dict(max_abs_err=errs[torch.bfloat16], ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return b_ms, b_by, (
+        f"bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, f32 FLOPs "
+        f"{flops / F32_FLOPS * 1e3:.4f} ms, {el * n / 1e6:.1f} M exp at "
+        f"{rate / 1e12:.3f} T/s {el * n / rate * 1e3:.4f} ms")
+
+
+def check_scan_agrees(torch, gen, lengths, label):
+    """The scan kernel against its plain version in f32 (1e-5 relative to
+    max |y|) and bf16 (2e-2), the final state within 1e-4 in both.
+    Returns (bf16 inputs, bf16 max |y err|)."""
+    from repro_torch.kernels import cuda as kc
+    from repro_torch.kernels import ref
+    for dtype, tol in ((torch.float32, F32_SCAN_TOL),
+                       (torch.bfloat16, BF16_TOL)):
+        args = scan_inputs(torch, gen, lengths, dtype)
+        y, h = kc.selective_scan(*args, return_state=True)
+        torch.cuda.synchronize()
+        y_ref, h_ref = ref.selective_scan_with_state_ref(*args)
+        y_rel, h_rel = rel_err(y, y_ref), rel_err(h, h_ref)
+        err = (y.float() - y_ref.float()).abs().max().item()
+        print(f"  selective_scan ({str(dtype)[6:]}{label}): max|y err| "
+              f"{err:.3e}, relative {y_rel:.3e} (tol {tol}); h_last "
+              f"relative {h_rel:.3e} (tol {STATE_TOL})", flush=True)
+        if not (y_rel <= tol and h_rel <= STATE_TOL):
+            fail(f"selective_scan ({dtype}{label}) disagrees with its plain "
+                 "version")
+    return args, err
+
+
+def check_scan(torch, flush, gen):
+    """The scan at the full-width prefill's shapes (rows of a 512 bucket,
+    d_inner 8192, N 16): B=4 with ragged lengths (512, 389, 200, 64), and
+    1 x 512, the engine's usual prefill group. Timed in bf16 as the
+    prefill calls it, with the final state. Returns the B=4 row."""
+    from repro_torch.kernels import cuda as kc
+    from repro_torch.kernels import ref
+    rows = []
+    for lengths, label in (([512, 389, 200, 64], ""), ([512], ", 1 x 512")):
+        args, err = check_scan_agrees(torch, gen, lengths, label)
+        b, s, d = args[0].shape
+        n = args[2].shape[1]
+        ms = time_ms(torch, lambda: kc.selective_scan(*args,
+                                                      return_state=True),
+                     flush)
+        plain_ms = time_ms(torch,
+                           lambda: ref.selective_scan_with_state_ref(*args),
+                           flush, iters=5, warmup=1)
+        b_ms, b_by, detail = scan_bound(torch, b, s, d, n)
+        plan = kc.scan_plan(b, s, d, n)
+        print(f"  selective_scan (bf16, B={b} S={s} D={d} N={n}, with "
+              f"h_last; plan {plan.npl} states per thread, {plan.steps} "
+              f"steps per chunk, {plan.threads} threads x {plan.grid} "
+              f"blocks): kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+              f"library none  bound {b_ms:.4f} ms ({b_by}: {detail}; "
+              f"kernel/bound {ms / b_ms:.2f})", flush=True)
+        rows.append(dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    return rows[0]
 
 
 # ---------------------------------------------------------------------------

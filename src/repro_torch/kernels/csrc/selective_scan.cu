@@ -13,31 +13,50 @@
 // exp(0) = 1 and the state carries through unchanged.
 //
 // What bounds it on an H100: the exponentials. Every (b, t, d, n) needs one
-// expf — B*S*D*N of them, 268 M at B=4, S=512, D=8192, N=16 — and the SFU
-// issues 16 per SM per clock; against that the kernel moves only x, dt and
-// y (plus h_last) once, and does ~3 f32 FMAs per exp. The math stays in
-// accurate f32 expf (no --use_fast_math, no __expf) so f32 inputs agree
-// with the plain version to ~1e-6; accurate expf costs a few extra FMAs per
-// exp around the SFU's ex2.
+// exp — B*S*D*N of them, 67 M at the engine's 1 x 512 prefill (D=8192,
+// N=16) — and the SFU issues 16 per SM per clock; against that the kernel
+// moves only x, dt and y (plus h_last) once, and does 4 f32 operations per
+// exp. The design keeps everything else off that path:
 //
-// Layout: one block of 4 warps covers 32 consecutive channels of one batch
-// row; lane l owns channel d0 + l and warp g owns states [g*N/4, (g+1)*N/4)
-// of it, in registers. Splitting N over warps (rather than one thread per
-// channel holding all N states) gives 4x the threads: at B=1, D=8192 that is
-// 256 blocks, enough to cover the 132 SMs, where one thread per channel
-// would leave half of them idle. Each warp reads 32 neighbouring d of x and
-// dt per step (coalesced; the other three warps hit L1). The sequential
-// grid axis of the TPU kernel becomes a loop over time inside the block:
-// B_t and C_t, shared by every channel of the row, are staged through
-// shared memory T steps at a time; each warp's partial C.h goes to shared
-// memory, and at the end of the chunk the block sums the 4 partials, adds
-// D*x and writes y as coalesced rows. Any S and any D: the last chunk and
-// the last block mask their ragged edge.
+// - Exponentials on the SFU alone: log2(e) is folded into A once, when A is
+//   loaded into registers, and each step's decay is ex2.approx.ftz of
+//   dt * a' — one FMUL and one MUFU.EX2. ex2.approx is within 2 ulp; f32
+//   inputs still agree with the plain version to ~2e-7 of max |y|
+//   (tolerance 1e-5), so both instantiations use it.
+// - Nothing from global memory inside the dependent time loop. x and dt are
+//   copied T steps at a time into shared memory with cp.async (16-byte
+//   pieces when D * itemsize is a multiple of 16, else 4-byte, else single
+//   elements for odd D in bf16), the next chunk's copy in flight during
+//   this chunk's math. B and C (strided, unaligned column slices of the
+//   x_proj output: scalar loads) are loaded into registers a chunk ahead.
+//   Between the chunks' math the block regroups both: dt and x into records
+//   of four steps of a channel (one 8-byte load per four steps in bf16),
+//   and B, C into (B, C) pairs of each state in the inputs' own type, so a
+//   thread reads its states' pairs of a step with one 8- or 16-byte load.
+//   The time loop loads the next group of steps before the math of this
+//   one, so those loads' latency hides behind it.
+// - Threads per channel from the grid's size: one block covers 32 channels
+//   (lane l owns channel d0 + l, so records are read conflict-free) and
+//   N / NPL warps, warp g owning states [g*NPL, (g+1)*NPL) in registers.
+//   The host (kernels/cuda.py:scan_plan) picks NPL, the states per thread,
+//   and T, the steps per chunk, from the shapes: fewer states per thread
+//   means more warps in flight but more shared loads, stores and epilogue
+//   sums per exp. scripts/scan_plan_sweep.py measures the trade: at the
+//   engine's 1 x 512, 4 states per thread (8 warps per SM) beat 2 (16).
+//
+// Each warp's partial C.h of four steps goes to shared memory as one
+// 16-byte store; after the chunk the block sums the N / NPL partials in a
+// fixed order, adds D*x and writes y a channel per lane (coalesced rows), so
+// y does not depend on whether h_last is asked for. T (32 or 64) is a
+// template parameter, so every staging index is a shift: with a runtime T
+// the index divisions alone took more issue slots than the math, and took
+// the SFU for their reciprocals. The last chunk runs its full T steps over
+// zero-filled inputs (dt = 0 keeps the state, x = 0 adds nothing) and writes
+// only the steps that exist; the last block masks channels past D.
 //
 // Inputs as the model hands them over: x, dt and y are contiguous
-// (B, S, D); B and C may be strided views (column slices of the x_proj
-// output), so their batch and time strides are arguments and only their
-// last stride must be 1.
+// (B, S, D); B and C may be strided views, so their batch and time strides
+// are arguments and only their last stride must be 1.
 
 #include "attn_common.cuh"
 
@@ -45,12 +64,140 @@ using namespace repro_attn;
 
 namespace {
 
-constexpr int CH = 32;  // channels per block, one per lane
-constexpr int NG = 4;   // warps per block; warp g owns N / NG states
-constexpr int T = 32;   // time steps staged per chunk
+constexpr int CH = 32;         // channels per block, one per lane
+constexpr float LOG2E = 1.4426950408889634f;
 
-template <typename Tp, int NPL>
-__global__ void __launch_bounds__(NG * 32)
+enum { STAGE_16 = 0, STAGE_4 = 1, STAGE_ELEM = 2 };
+
+__device__ __forceinline__ float ex2_approx(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+// 4 bytes global -> shared; with src_bytes 0 the destination is zero-filled
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+// bytes of dynamic shared memory for one block
+__host__ __device__ constexpr size_t smem_bytes(int T, int N, int P, int itemsize) {
+  return size_t(2) * T * CH * itemsize   // x, dt rows as copied
+         + size_t(3) * T * CH * itemsize  // dt and x by records (x: two buffers)
+         + size_t(T) * N * 2 * itemsize   // (B, C) pairs
+         + size_t(P) * T * CH * 4;        // partial C.h per warp and step
+}
+
+// x and dt of the T steps from t0 into s_x and s_dt ([T][CH] each), in
+// pieces of PB bytes (cp.async for 16 and 4, plain loads for single
+// elements); pieces past S or D are zero-filled. Every index is a shift:
+// T, PB and the block size are compile-time.
+template <typename Tp, int T, int NT, int PB>
+__device__ __forceinline__ void stage_xdt(const Tp* __restrict__ x, const Tp* __restrict__ dt,
+                                          Tp* s_x, Tp* s_dt, long long row0, int t0, int S,
+                                          int D, int d0, int tid) {
+  constexpr int PER_ROW = CH * int(sizeof(Tp)) / PB;
+  constexpr int PER_ARR = T * PER_ROW;
+  constexpr int ITERS = (2 * PER_ARR + NT - 1) / NT;
+#pragma unroll 8
+  for (int k = 0; k < ITERS; ++k) {
+    const int i = k * NT + tid;
+    if ((2 * PER_ARR) % NT == 0 || i < 2 * PER_ARR) {
+      const int arr = i / PER_ARR, r = i % PER_ARR;
+      const int tt = r / PER_ROW, q = r % PER_ROW;
+      const int dd = d0 + q * (PB / int(sizeof(Tp)));  // first channel of the piece
+      const bool ok = t0 + tt < S && dd < D;
+      const Tp* src = arr ? dt : x;
+      const Tp* from = ok ? src + (row0 + t0 + tt) * D + dd : src;
+      Tp* to = (arr ? s_dt : s_x) + tt * CH + q * (PB / int(sizeof(Tp)));
+      if constexpr (PB == 16)
+        cp_async16(to, from, ok ? 16 : 0);
+      else if constexpr (PB == 4)
+        cp_async4(to, from, ok ? 4 : 0);
+      else
+        *to = ok ? *from : from_f32<Tp>(0.f);
+    }
+  }
+}
+
+// The copied rows ([T][CH] each) into records of four steps of a channel:
+// record (t4, c) of r_dt and of r_x holds steps 4 t4 .. 4 t4 + 3 of channel
+// c, so the time loop reads four steps of dt and of x with one load each.
+template <typename Tp, int T, int NT>
+__device__ __forceinline__ void to_records(const Tp* s_x, const Tp* s_dt, Tp* r_dt, Tp* r_x,
+                                           int tid) {
+  if constexpr (sizeof(Tp) == 2) {
+    // a channel pair a thread: one bf16 word per row and array, its lower
+    // and upper halves regrouped by channel
+    constexpr int ITEMS = T / 4 * CH / 2;
+#pragma unroll
+    for (int k = 0; k < (ITEMS + NT - 1) / NT; ++k) {
+      const int i = k * NT + tid;
+      if (ITEMS % NT == 0 || i < ITEMS) {
+        const int t4 = i / (CH / 2), c = (i % (CH / 2)) * 2;
+#pragma unroll
+        for (int arr = 0; arr < 2; ++arr) {
+          const Tp* src = (arr ? s_x : s_dt) + 4 * t4 * CH + c;
+          uint32_t w[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) w[j] = *reinterpret_cast<const uint32_t*>(src + j * CH);
+          uint4* out = reinterpret_cast<uint4*>((arr ? r_x : r_dt) + (t4 * CH + c) * 4);
+          *out = make_uint4(__byte_perm(w[0], w[1], 0x5410), __byte_perm(w[2], w[3], 0x5410),
+                            __byte_perm(w[0], w[1], 0x7632), __byte_perm(w[2], w[3], 0x7632));
+        }
+      }
+    }
+  } else {
+    constexpr int ITEMS = T / 4 * CH;
+#pragma unroll
+    for (int k = 0; k < (ITEMS + NT - 1) / NT; ++k) {
+      const int i = k * NT + tid;
+      if (ITEMS % NT == 0 || i < ITEMS) {
+        const int t4 = i / CH, c = i % CH;
+#pragma unroll
+        for (int arr = 0; arr < 2; ++arr) {
+          const Tp* src = (arr ? s_x : s_dt) + 4 * t4 * CH + c;
+          *reinterpret_cast<float4*>((arr ? r_x : r_dt) + (t4 * CH + c) * 4) =
+              make_float4(src[0], src[CH], src[2 * CH], src[3 * CH]);
+        }
+      }
+    }
+  }
+}
+
+// W consecutive 32-bit words from shared memory, in 16-, 8- or 4-byte loads
+template <int W>
+__device__ __forceinline__ void load_words(const void* p, uint32_t (&w)[W]) {
+  if constexpr (W % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < W / 4; ++j) {
+      const uint4 v = reinterpret_cast<const uint4*>(p)[j];
+      w[4 * j] = v.x;
+      w[4 * j + 1] = v.y;
+      w[4 * j + 2] = v.z;
+      w[4 * j + 3] = v.w;
+    }
+  } else if constexpr (W == 2) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+  } else {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  }
+}
+
+// element k of words holding elements of Tp, widened to f32
+template <typename Tp>
+__device__ __forceinline__ float word_elem(const uint32_t* w, int k) {
+  if constexpr (sizeof(Tp) == 2)
+    return __uint_as_float(k % 2 ? w[k / 2] & 0xffff0000u : w[k / 2] << 16);
+  else
+    return __uint_as_float(w[k]);
+}
+
+template <typename Tp, int N, int NPL, int T>
+__global__ void __launch_bounds__(CH * N / NPL)
 scan_kernel(const Tp* __restrict__ x,       // (B, S, D) contiguous
             const Tp* __restrict__ dt,      // (B, S, D) contiguous
             const float* __restrict__ A,    // (D, N)
@@ -59,113 +206,257 @@ scan_kernel(const Tp* __restrict__ x,       // (B, S, D) contiguous
             const float* __restrict__ Dv,   // (D,)
             Tp* __restrict__ y,             // (B, S, D)
             float* __restrict__ h_last,     // (B, D, N) or nullptr
-            int S, int D, long long sb_b, long long sb_t, long long sc_b,
+            int S, int D, int mode, long long sb_b, long long sb_t, long long sc_b,
             long long sc_t) {
-  constexpr int N = NPL * NG;
-  __shared__ float s_b[T][N];
-  __shared__ float s_c[T][N];
-  __shared__ float s_y[NG][T][CH];  // each warp's partial C.h per step
+  constexpr int P = N / NPL;          // warps per block
+  constexpr int NT = CH * P;          // threads per block
+  constexpr int T4 = T / 4;           // records per channel and chunk
+  constexpr int BCW = T * N / NT;     // (B, C) pairs a thread stages per chunk
+  // time steps whose shared loads are issued together
+  constexpr int U = NPL <= 2 ? 8 : 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Tp* s_x = reinterpret_cast<Tp*>(smem);  // [T][CH]
+  Tp* s_dt = s_x + T * CH;                 // [T][CH]
+  Tp* r_dt = s_dt + T * CH;                // [T4][CH][4]
+  Tp* r_x = r_dt + T * CH;                 // [2][T4][CH][4]
+  Tp* s_bc = r_x + 2 * T * CH;             // [T][P][NPL][2]: (B, C) of each state
+  float* s_y = reinterpret_cast<float*>(s_bc + T * N * 2);  // [P][T4][CH][4]
 
-  const int lane = threadIdx.x & 31;
-  const int g = threadIdx.x >> 5;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int g = tid >> 5;
   const int b = blockIdx.y;
   const int d0 = blockIdx.x * CH;
   const int d = d0 + lane;
   const bool live = d < D;
-  const int n0 = g * NPL;
+  const int nch = (S + T - 1) / T;
+  const long long row0 = (long long)b * S;  // row (b, t = 0) of x, dt, y
+
+  auto stage = [&](int c) {
+    if (mode == STAGE_16)
+      stage_xdt<Tp, T, NT, 16>(x, dt, s_x, s_dt, row0, c * T, S, D, d0, tid);
+    else if (mode == STAGE_4)
+      stage_xdt<Tp, T, NT, 4>(x, dt, s_x, s_dt, row0, c * T, S, D, d0, tid);
+    else
+      stage_xdt<Tp, T, NT, int(sizeof(Tp))>(x, dt, s_x, s_dt, row0, c * T, S, D, d0, tid);
+  };
+  // B and C of chunk c into registers (zero past S). Thread tid stages
+  // column tid % N of rows tid / N + j * RS of the chunk, j < BCW, of both:
+  // a pointer and a constant row stride each, no index math
+  constexpr int RS = NT / N;
+  const int bn = tid % N, bt = tid / N;
+  const long long rs_b = RS * sb_t, rs_c = RS * sc_t;
+  Tp pre[2 * BCW];
+  auto load_bc = [&](int c) {
+    const int t0 = c * T + bt;
+    const Tp* pb = Bm + b * sb_b + t0 * sb_t + bn;
+    const Tp* pc = Cm + b * sc_b + t0 * sc_t + bn;
+#pragma unroll
+    for (int j = 0; j < BCW; ++j) {
+      const bool ok = t0 + j * RS < S;
+      pre[2 * j] = ok ? pb[j * rs_b] : from_f32<Tp>(0.f);
+      pre[2 * j + 1] = ok ? pc[j * rs_c] : from_f32<Tp>(0.f);
+    }
+  };
+  // as stored: state n of step t at ((t * P + n / NPL) * NPL + n % NPL) * 2,
+  // which is (t * N + n) * 2
+  auto store_bc = [&]() {
+    Tp* q = s_bc + (bt * N + bn) * 2;
+#pragma unroll
+    for (int j = 0; j < BCW; ++j) {
+      if constexpr (sizeof(Tp) == 2) {
+        __nv_bfloat162 v;
+        v.x = pre[2 * j];
+        v.y = pre[2 * j + 1];
+        *reinterpret_cast<__nv_bfloat162*>(q + j * RS * N * 2) = v;
+      } else {
+        *reinterpret_cast<float2*>(q + j * RS * N * 2) = make_float2(pre[2 * j], pre[2 * j + 1]);
+      }
+    }
+  };
 
   float a[NPL], h[NPL];
 #pragma unroll
   for (int i = 0; i < NPL; ++i) {
-    a[i] = live ? A[(long long)d * N + n0 + i] : 0.f;
+    a[i] = live ? A[(long long)d * N + g * NPL + i] * LOG2E : 0.f;
     h[i] = 0.f;
   }
+  const float dk = live ? Dv[d] : 0.f;
+  const long long Dl = D;
 
-  const long long row0 = (long long)b * S;  // row (b, t = 0) of x, dt, y
-  for (int t0 = 0; t0 < S; t0 += T) {
-    const int steps = min(T, S - t0);
-    for (int i = threadIdx.x; i < T * N; i += NG * 32) {
-      const int tt = i / N, n = i % N;
-      float bv = 0.f, cv = 0.f;
-      if (tt < steps) {
-        bv = to_f32(Bm[b * sb_b + (t0 + tt) * sb_t + n]);
-        cv = to_f32(Cm[b * sc_b + (t0 + tt) * sc_t + n]);
-      }
-      s_b[tt][n] = bv;
-      s_c[tt][n] = cv;
-    }
+  if (nch > 0) {
+    stage(0);
+    cp_async_commit();
+    load_bc(0);
+    cp_async_wait<0>();
     __syncthreads();
-    if (live) {
-#pragma unroll 4
-      for (int tt = 0; tt < steps; ++tt) {
-        const long long off = (row0 + t0 + tt) * D + d;
-        const float dv = to_f32(dt[off]);
-        const float dx = dv * to_f32(x[off]);
-        float acc = 0.f;
+    to_records<Tp, T, NT>(s_x, s_dt, r_dt, r_x, tid);
+    store_bc();
+  }
+  for (int c = 0; c < nch; ++c) {
+    const int cur = c & 1;
+    const bool next = c + 1 < nch;
+    // chunk c's records and B|C are in; everyone is done with chunk c-1's
+    // epilogue and with the copied rows
+    __syncthreads();
+    if (next) {  // chunk c+1 lands during this chunk's math
+      stage(c + 1);
+      cp_async_commit();
+      load_bc(c + 1);
+    }
+
+    const Tp* pdt = r_dt + lane * 4;
+    const Tp* px = r_x + (cur * T4 * CH + lane) * 4;
+    const Tp* pbc = s_bc + g * NPL * 2;
+    float* py = s_y + (g * T4 * CH + lane) * 4;
+    // the raw words of a group of U steps: dt and x by records, and the
+    // thread's (B, C) pairs of each step. The next group's are loaded
+    // before this group's math, so the loads' latency hides behind it
+    constexpr int RW = int(sizeof(Tp));          // words per record of 4
+    constexpr int BW = NPL * 2 * int(sizeof(Tp)) / 4;  // words of (B, C) a step
+    struct Group {
+      uint32_t dt[U / 4][RW], x[U / 4][RW], bc[U][BW];
+    };
+    auto load_group = [&](int t0u, Group& G) {
 #pragma unroll
-        for (int i = 0; i < NPL; ++i) {
-          const float da = expf(dv * a[i]);
-          h[i] = da * h[i] + dx * s_b[tt][n0 + i];
-          acc += h[i] * s_c[tt][n0 + i];
+      for (int r = 0; r < U / 4; ++r) {
+        load_words(pdt + (t0u / 4 + r) * CH * 4, G.dt[r]);
+        load_words(px + (t0u / 4 + r) * CH * 4, G.x[r]);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) load_words(pbc + (t0u + u) * N * 2, G.bc[u]);
+    };
+    Group cur_g;
+    load_group(0, cur_g);
+#pragma unroll 2
+    for (int t0u = 0; t0u < T; t0u += U) {
+      Group nxt;
+      load_group((t0u + U) % T, nxt);  // the last group's is not used
+#pragma unroll
+      for (int r = 0; r < U / 4; ++r) {
+        float acc[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int u = 4 * r + j;
+          const float dv = word_elem<Tp>(cur_g.dt[r], j);
+          const float dx = dv * word_elem<Tp>(cur_g.x[r], j);
+          acc[j] = 0.f;
+#pragma unroll
+          for (int i = 0; i < NPL; ++i) {
+            const float da = ex2_approx(dv * a[i]);
+            h[i] = fmaf(da, h[i], dx * word_elem<Tp>(cur_g.bc[u], 2 * i));
+            acc[j] = fmaf(h[i], word_elem<Tp>(cur_g.bc[u], 2 * i + 1), acc[j]);
+          }
         }
-        s_y[g][tt][lane] = acc;
+        *reinterpret_cast<float4*>(py + (t0u / 4 + r) * CH * 4) =
+            make_float4(acc[0], acc[1], acc[2], acc[3]);
+      }
+      cur_g = nxt;
+    }
+    cp_async_wait<0>();  // this thread's copies of chunk c+1 have landed
+    __syncthreads();     // every partial of chunk c, every copy of chunk c+1
+
+    // y = the warps' partials in a fixed order + D * x: a thread sums the
+    // four steps of record (t4, lane) for t4 = g, g + P, ...
+    const int t0 = c * T;
+    // a warp's records are independent: unrolled, their loads overlap
+#pragma unroll
+    for (int k = 0; k < (T4 + P - 1) / P; ++k) {
+      const int t4 = g + k * P;
+      const int tb = t0 + 4 * t4;
+      if (t4 >= T4 || tb >= S) continue;
+      float4 acc = *reinterpret_cast<const float4*>(s_y + (t4 * CH + lane) * 4);
+#pragma unroll
+      for (int gg = 1; gg < P; ++gg) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(s_y + ((gg * T4 + t4) * CH + lane) * 4);
+        acc.x += v.x;
+        acc.y += v.y;
+        acc.z += v.z;
+        acc.w += v.w;
+      }
+      float xs[4];
+      load_f32<Tp, 4>(r_x + ((cur * T4 + t4) * CH + lane) * 4, xs);
+      const Tp o[4] = {from_f32<Tp>(fmaf(dk, xs[0], acc.x)), from_f32<Tp>(fmaf(dk, xs[1], acc.y)),
+                       from_f32<Tp>(fmaf(dk, xs[2], acc.z)), from_f32<Tp>(fmaf(dk, xs[3], acc.w))};
+      if (live) {
+        Tp* yp = y + (row0 + tb) * Dl + d;
+        if (tb + 3 < S) {
+          yp[0] = o[0];
+          yp[Dl] = o[1];
+          yp[2 * Dl] = o[2];
+          yp[3 * Dl] = o[3];
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (tb + j < S) yp[j * Dl] = o[j];
+        }
       }
     }
-    __syncthreads();
-    // the next chunk's staging writes only s_b / s_c, which nobody reads
-    // after the barrier above; its own barrier orders these s_y reads
-    // before s_y is written again
-    for (int i = threadIdx.x; i < steps * CH; i += NG * 32) {
-      const int tt = i / CH, c = i % CH;
-      const int dd = d0 + c;
-      if (dd < D) {
-        const long long off = (row0 + t0 + tt) * D + dd;
-        float acc = 0.f;
-#pragma unroll
-        for (int gg = 0; gg < NG; ++gg) acc += s_y[gg][tt][c];
-        y[off] = from_f32<Tp>(acc + Dv[dd] * to_f32(x[off]));
-      }
+    if (next) {
+      // chunk c+1's records and B|C, whose buffers chunk c's math (done:
+      // second barrier) was the last to read, and x by records into the
+      // buffer the epilogue is not reading; the next iteration's first
+      // barrier orders these writes before their readers
+      to_records<Tp, T, NT>(s_x, s_dt, r_dt, r_x + (cur ^ 1) * T * CH, tid);
+      store_bc();
     }
   }
 
   if (h_last != nullptr && live) {
-    float* hp = h_last + ((long long)b * D + d) * N + n0;
+    float* hp = h_last + ((long long)b * D + d) * N + g * NPL;
 #pragma unroll
     for (int i = 0; i < NPL; ++i) hp[i] = h[i];
   }
 }
 
-template <typename Tp, int NPL>
+template <typename Tp, int N, int NPL, int T>
 int launch(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
            const void* Dv, void* y, void* h_last, int B, int S, int D, long long sb_b,
            long long sb_t, long long sc_b, long long sc_t, cudaStream_t stream) {
+  constexpr int P = N / NPL;
+  constexpr int is = int(sizeof(Tp));
+  const uintptr_t xdt = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dt);
+  const int mode = (xdt % 16 == 0 && (long long)D * is % 16 == 0)  ? STAGE_16
+                   : (xdt % 4 == 0 && (long long)D * is % 4 == 0) ? STAGE_4
+                                                                    : STAGE_ELEM;
+  constexpr size_t smem = smem_bytes(T, N, P, is);
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        scan_kernel<Tp, N, NPL, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
   dim3 grid((D + CH - 1) / CH, B);
-  scan_kernel<Tp, NPL><<<grid, NG * 32, 0, stream>>>(
+  scan_kernel<Tp, N, NPL, T><<<grid, CH * P, smem, stream>>>(
       static_cast<const Tp*>(x), static_cast<const Tp*>(dt), static_cast<const float*>(A),
       static_cast<const Tp*>(Bm), static_cast<const Tp*>(Cm), static_cast<const float*>(Dv),
-      static_cast<Tp*>(y), static_cast<float*>(h_last), S, D, sb_b, sb_t, sc_b, sc_t);
+      static_cast<Tp*>(y), static_cast<float*>(h_last), S, D, mode, sb_b, sb_t, sc_b, sc_t);
   return (int)cudaGetLastError();
 }
 
+// (N, states per thread) pairs with 1 to 16 warps per block, each with 32
+// or 64 steps per chunk; kernels/cuda.py SCAN_STATES, SCAN_NPL and
+// SCAN_STEPS name the same sets
 template <typename Tp>
-int dispatch(int N, const void* x, const void* dt, const void* A, const void* Bm,
-             const void* Cm, const void* Dv, void* y, void* h_last, int B, int S, int D,
-             long long sb_b, long long sb_t, long long sc_b, long long sc_t,
+int dispatch(int N, int npl, int T, const void* x, const void* dt, const void* A,
+             const void* Bm, const void* Cm, const void* Dv, void* y, void* h_last, int B,
+             int S, int D, long long sb_b, long long sb_t, long long sc_b, long long sc_t,
              cudaStream_t stream) {
-#define SCAN_CASE(NN)                                                                  \
-  case NN:                                                                             \
-    return launch<Tp, NN / NG>(x, dt, A, Bm, Cm, Dv, y, h_last, B, S, D, sb_b, sb_t, \
-                               sc_b, sc_t, stream);
-  switch (N) {
-    SCAN_CASE(4)
-    SCAN_CASE(8)
-    SCAN_CASE(16)
-    SCAN_CASE(32)
-    SCAN_CASE(64)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+#define SCAN_CASE(NN, PP)                                                                  \
+  if (N == NN && npl == PP)                                                                \
+    return T == 64 ? launch<Tp, NN, PP, 64>(x, dt, A, Bm, Cm, Dv, y, h_last, B, S, D,     \
+                                            sb_b, sb_t, sc_b, sc_t, stream)               \
+                   : launch<Tp, NN, PP, 32>(x, dt, A, Bm, Cm, Dv, y, h_last, B, S, D,     \
+                                            sb_b, sb_t, sc_b, sc_t, stream);
+  SCAN_CASE(4, 1) SCAN_CASE(4, 2) SCAN_CASE(4, 4)
+  SCAN_CASE(8, 1) SCAN_CASE(8, 2) SCAN_CASE(8, 4) SCAN_CASE(8, 8)
+  SCAN_CASE(16, 1) SCAN_CASE(16, 2) SCAN_CASE(16, 4) SCAN_CASE(16, 8)
+  SCAN_CASE(32, 2) SCAN_CASE(32, 4) SCAN_CASE(32, 8)
+  SCAN_CASE(64, 4) SCAN_CASE(64, 8)
 #undef SCAN_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -173,18 +464,21 @@ int dispatch(int N, const void* x, const void* dt, const void* A, const void* Bm
 extern "C" {
 
 // dtype: DTYPE_F32 or DTYPE_BF16 for x, dt, B, C and y; A and D are f32.
-// h_last may be null. Returns cudaGetLastError() after the launch.
+// h_last may be null. npl: states per thread; steps: time steps staged per
+// chunk, 32 or 64 (both from kernels/cuda.py:scan_plan). Returns
+// cudaGetLastError() after the launch.
 int selective_scan(int dtype, const void* x, const void* dt, const void* A, const void* Bm,
                    const void* Cm, const void* Dv, void* y, void* h_last, int B, int S,
-                   int D, int N, long long sb_b, long long sb_t, long long sc_b,
-                   long long sc_t, void* stream) {
+                   int D, int N, int npl, int steps, long long sb_b, long long sb_t,
+                   long long sc_b, long long sc_t, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (steps != 32 && steps != 64) return (int)cudaErrorInvalidValue;
   if (dtype == DTYPE_F32)
-    return dispatch<float>(N, x, dt, A, Bm, Cm, Dv, y, h_last, B, S, D, sb_b, sb_t, sc_b,
-                           sc_t, st);
+    return dispatch<float>(N, npl, steps, x, dt, A, Bm, Cm, Dv, y, h_last, B, S, D, sb_b,
+                           sb_t, sc_b, sc_t, st);
   if (dtype == DTYPE_BF16)
-    return dispatch<__nv_bfloat16>(N, x, dt, A, Bm, Cm, Dv, y, h_last, B, S, D, sb_b, sb_t,
-                                   sc_b, sc_t, st);
+    return dispatch<__nv_bfloat16>(N, npl, steps, x, dt, A, Bm, Cm, Dv, y, h_last, B, S, D,
+                                   sb_b, sb_t, sc_b, sc_t, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -12,13 +12,15 @@ The decode wrappers plan their split-KV launch on the host with
 ``decode_plan`` (from the cache's capacity, never from ``lengths``, which
 lives on the device) and keep, per device and stream, a scratch buffer
 for the splits' partial results and a buffer of merge counters that the
-kernel leaves at zero after every launch. The kernels' sources and design
+kernel leaves at zero after every launch. The scan wrapper plans its
+launch the same way with ``scan_plan``: states per thread and time steps
+staged per chunk, from the shapes alone. The kernels' sources and design
 notes are in ``csrc/``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -51,7 +53,7 @@ _SIGS = {
     "flash_attention": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _I, _I, _F, _I, _P],
     "selective_scan": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                       _L, _L, _L, _L, _P],
+                       _I, _I, _L, _L, _L, _L, _P],
 }
 _LIB_OF = {
     "decode_attention": "decode_attention",
@@ -285,6 +287,76 @@ def flash_attention(q, k, v, *, causal=True, window=None, lengths=None,
 
 
 SCAN_STATES = (4, 8, 16, 32, 64)
+#: states per thread the kernel is built for (with 1 to 16 warps a block)
+SCAN_NPL = (1, 2, 4, 8)
+#: time steps staged per chunk the kernel is built for, most first
+SCAN_STEPS = (64, 32)
+SCAN_CHANNELS = 32          # channels per block, one per lane
+SCAN_SMS = 132              # H100 SXM
+SCAN_SM_SMEM = 228 * 1024   # shared memory of one SM, 1 KB of it per block
+SCAN_SM_THREADS = 2048
+#: warps per SM the grid must give before the plan takes more states per
+#: thread, and warps per SM the steps per chunk may not push residency
+#: under; both from scripts/scan_plan_sweep.py (PERF.md §6): at
+#: 1 x 512, 4 states per thread (8 warps per SM) beat 2 (16 warps)
+SCAN_MIN_WARPS = 8
+SCAN_RESIDENT_WARPS = 16
+
+
+class ScanPlan(NamedTuple):
+    npl: int                # states per thread
+    steps: int              # time steps staged per chunk
+    grid: Tuple[int, int]   # (channel blocks, batch rows)
+    threads: int            # 32 lanes (channels) x n / npl warps
+
+
+def scan_npl_options(n: int) -> Tuple[int, ...]:
+    """States per thread the kernel takes for d_state `n`."""
+    return tuple(p for p in SCAN_NPL if n % p == 0 and n // p <= 16)
+
+
+def scan_smem(steps: int, n: int, npl: int, itemsize: int) -> int:
+    """Dynamic shared memory of one scan block, as
+    csrc/selective_scan.cu:smem_bytes: x and dt as copied, dt and x by
+    records (x in two buffers), the (B, C) pairs, and each warp's partial
+    C.h per step."""
+    c = SCAN_CHANNELS
+    return (5 * steps * c * itemsize + 2 * steps * n * itemsize
+            + (n // npl) * steps * c * 4)
+
+
+def scan_resident_blocks(steps: int, n: int, npl: int, itemsize: int) -> int:
+    """Scan blocks one SM holds by shared memory and threads."""
+    return min(SCAN_SM_SMEM // (scan_smem(steps, n, npl, itemsize) + 1024),
+               SCAN_SM_THREADS // (SCAN_CHANNELS * n // npl))
+
+
+def scan_plan(b: int, s: int, d: int, n: int, itemsize: int = 2) -> ScanPlan:
+    """Launch plan of the scan from host-known shapes only. Block (i, b)
+    covers channels [32 i, 32 i + 32) of batch row b, lane l channel
+    32 i + l, warp g states [g npl, (g + 1) npl). States per thread: of
+    those with which an SM holds two blocks, the most (least shared-memory
+    and epilogue work per exp) for which the grid still gives
+    SCAN_MIN_WARPS warps per SM. Steps per chunk: the most (up to the
+    sequence, rounded up to 32) with which an SM holds two blocks and
+    SCAN_RESIDENT_WARPS warps, or all the grid gives it if fewer."""
+    blocks = b * _cdiv(d, SCAN_CHANNELS)
+    opts = [p for p in scan_npl_options(n) if scan_resident_blocks(
+        SCAN_STEPS[-1], n, p, itemsize) >= 2]
+    for npl in reversed(opts):
+        if _cdiv(blocks, SCAN_SMS) * (n // npl) >= SCAN_MIN_WARPS:
+            break
+    warps = n // npl
+    want = min(SCAN_RESIDENT_WARPS, _cdiv(blocks, SCAN_SMS) * warps)
+    cap = max(SCAN_STEPS[-1], _cdiv(s, 32) * 32)
+    steps = SCAN_STEPS[-1]
+    for t in SCAN_STEPS:
+        held = scan_resident_blocks(t, n, npl, itemsize)
+        if t <= cap and held >= 2 and held * warps >= want:
+            steps = t
+            break
+    return ScanPlan(npl, steps, (_cdiv(d, SCAN_CHANNELS), b),
+                    SCAN_CHANNELS * warps)
 
 
 def selective_scan(x, dt, A, B, C, D, *, return_state=False):
@@ -311,11 +383,13 @@ def selective_scan(x, dt, A, B, C, D, *, return_state=False):
                          "stride")
     A = A.float().contiguous()
     D = D.float().contiguous()
+    plan = scan_plan(bsz, s, d, n, x.element_size())
     y = torch.empty_like(x)
     h = (torch.empty((bsz, d, n), dtype=torch.float32, device=x.device)
          if return_state else None)
     _run(name, None, _dtype(name, x), x.data_ptr(), dt.data_ptr(), A.data_ptr(),
          B.data_ptr(), C.data_ptr(), D.data_ptr(), y.data_ptr(),
-         h.data_ptr() if h is not None else None, bsz, s, d, n,
-         B.stride(0), B.stride(1), C.stride(0), C.stride(1), _stream())
+         h.data_ptr() if h is not None else None, bsz, s, d, n, plan.npl,
+         plan.steps, B.stride(0), B.stride(1), C.stride(0), C.stride(1),
+         _stream())
     return (y, h) if return_state else y

@@ -295,9 +295,12 @@ def test_flash_kernel_tile_heights(dev, case, warps, monkeypatch):
 
 SCAN_CASES = [
     # (b, s, d, n): ragged S and D, every d_state the kernel takes, and
-    # the main path's width
+    # the main path's width (B=4 and the engine's 1 x 512); D * 2 bytes
+    # not a multiple of 16 (4-byte copies of x and dt in bf16) and odd D
+    # (element copies in bf16)
     (2, 77, 200, 16), (1, 33, 64, 8), (3, 40, 96, 4), (1, 20, 48, 32),
-    (2, 19, 40, 64), (4, 512, 8192, 16),
+    (2, 19, 40, 64), (4, 512, 8192, 16), (1, 512, 8192, 16),
+    (1, 45, 36, 16), (2, 21, 35, 8),
 ]
 
 
@@ -340,6 +343,28 @@ def test_selective_scan_kernel(dev, case, dtype):
     assert torch.equal(y, y2)
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     assert _rel(y, y_ref) <= tol
+    assert _rel(h, h_ref) <= 1e-4
+
+
+@pytest.mark.parametrize("n,npl,steps", [
+    (n, npl, 32) for n in tcuda.SCAN_STATES
+    for npl in tcuda.scan_npl_options(n)] + [
+    (16, npl, 64) for npl in (1, 2, 4, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_kernel_every_plan(dev, monkeypatch, n, npl, steps,
+                                          dtype):
+    """Every (states per thread, steps per chunk) the plan can choose,
+    forced through `scan_plan` as scripts/scan_plan_sweep.py forces it, on
+    a ragged shape (S not a multiple of the steps, D of the 32 channels
+    of a block): the same tolerances as the plan's own launch."""
+    b, s, d = 2, 70, 72
+    monkeypatch.setattr(tcuda, "scan_plan", lambda *_: tcuda.ScanPlan(
+        npl, steps, (-(-d // 32), b), 32 * n // npl))
+    args = _scan_args(b, s, d, n, dtype, dev)
+    y, h = tcuda.selective_scan(*args, return_state=True)
+    torch.cuda.synchronize()
+    y_ref, h_ref = tref.selective_scan_with_state_ref(*args)
+    assert _rel(y, y_ref) <= (1e-5 if dtype == torch.float32 else 2e-2)
     assert _rel(h, h_ref) <= 1e-4
 
 

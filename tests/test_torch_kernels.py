@@ -251,3 +251,62 @@ def test_flash_plan_takes_tall_tiles_only_on_full_grids():
     assert tcuda.flash_plan(1, 512, 32) == 8      # 128 blocks
     assert tcuda.flash_plan(1, 128, 32) == 4      # 32 blocks
     assert tcuda.flash_plan(2, 40, 4) == 4
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("b,s,d,n", [
+    (1, 512, 8192, 16),        # falcon-mamba-7b, the engine's 1 x 512
+    (4, 512, 8192, 16),        # falcon-mamba-7b, a 4-row group
+    (2, 77, 200, 16),          # ragged S and D
+    (1, 45, 36, 16),           # D * 2 bytes not a multiple of 16
+    (2, 21, 35, 8),            # odd D
+    (3, 40, 96, 4), (1, 20, 48, 32), (2, 19, 40, 64),
+    (1, 1, 1, 16), (8, 3000, 5000, 64)])
+def test_scan_plan_covers_every_state_once(b, s, d, n, itemsize):
+    """Block (i, bb), lane l, warp g own batch row bb, channel 32 i + l
+    (when < d) and states [g npl, (g + 1) npl): together every (b, d, n)
+    exactly once. npl divides n; the block has 1 to 16 warps; the steps
+    per chunk are a count the kernel takes, and an SM holds two blocks."""
+    plan = tcuda.scan_plan(b, s, d, n, itemsize)
+    assert n % plan.npl == 0 and plan.npl in tcuda.SCAN_NPL
+    assert plan.threads == 32 * (n // plan.npl)
+    assert 32 <= plan.threads <= 512
+    assert plan.steps in tcuda.SCAN_STEPS
+    assert tcuda.scan_resident_blocks(plan.steps, n, plan.npl, itemsize) >= 2
+    seen = np.zeros((b, d, n), np.int64)
+    gx, gy = plan.grid
+    assert gy == b
+    for i in range(gx):
+        for g in range(plan.threads // 32):
+            ch = np.arange(32 * i, 32 * i + 32)
+            ch = ch[ch < d]
+            seen[:, ch, g * plan.npl:(g + 1) * plan.npl] += 1
+    assert (seen == 1).all()
+    # host-known shapes only: the same plan for the same shapes
+    assert tcuda.scan_plan(b, s, d, n, itemsize) == plan
+
+
+@pytest.mark.parametrize("n", tcuda.SCAN_STATES)
+def test_scan_plan_states_per_thread_divide_n(n):
+    """Every states-per-thread option divides N with at most 16 warps a
+    block, for every d_state the kernel takes."""
+    opts = tcuda.scan_npl_options(n)
+    assert opts
+    assert all(n % p == 0 and n // p <= 16 for p in opts)
+
+
+def test_scan_plan_gives_one_row_more_threads_per_channel():
+    """At B=1 (the engine's 1 x 512, falcon-mamba-7b widths) the plan
+    takes fewer states per thread, so more threads per channel, than at
+    B=4, where the grid alone fills the card."""
+    one = tcuda.scan_plan(1, 512, 8192, 16)
+    four = tcuda.scan_plan(4, 512, 8192, 16)
+    assert 16 // one.npl > 16 // four.npl
+    # warps per SM at B=1: at least SCAN_MIN_WARPS on the busiest SMs
+    blocks = one.grid[0] * one.grid[1]
+    assert -(-blocks // tcuda.SCAN_SMS) * (one.threads // 32) \
+        >= tcuda.SCAN_MIN_WARPS
+    # the plans scripts/scan_plan_sweep.py measured fastest on the card
+    assert (one.npl, one.steps) == (4, 64)
+    assert (four.npl, four.steps) == (8, 32)
+
