@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths — the Andes serving engine over the
-full-width, full-depth Llama-3-8B and Falcon-Mamba-7B configs with random
-bf16 weights made from a seed — and holds every hand-written CUDA kernel
-on those paths against its plain PyTorch version. Phases, in order:
+Drives the port's three main paths — the Andes serving engine over the
+full-width, full-depth Llama-3-8B, Falcon-Mamba-7B and Zamba2-2.7B configs
+with random bf16 weights made from a seed — and holds every hand-written
+CUDA kernel on those paths against its plain PyTorch version. Phases, in
+order:
 
 1. the device: name and power limit from nvidia-smi;
 2. build the CUDA kernels (one nvcc per source, in parallel), and count
@@ -23,11 +24,16 @@ on those paths against its plain PyTorch version. Phases, in order:
    and once in f32 (1e-5). Also timed: flash and the scan at 1 x 512 (the
    engine's usual prefill group; flash beside SDPA) and decode at B=1,
    each beside its bound, the scan with the launch plan it took; the
-   paged kernel must equal the contiguous one bitwise;
+   paged kernel must equal the contiguous one bitwise. At zamba2's shapes:
+   flash (1 x 512) and decode (B=8, depth 1024) with H = KV = 32, hd 80,
+   beside SDPA, and the scan through Mamba-2's mapping
+   (`ops.ssd_with_state`: NH 80, HD 64, N 64, 1 x 512 and B=4 ragged)
+   against the plain Mamba-2 recurrence in f32 and bf16, timed beside the
+   function's bound and the kernel's exponential bound;
 4. the smoke-size engines on the card against the same engines on the CPU
    (plain versions), f32, with a capacity that forces preemption: llama3
-   over the contiguous cache and the page pool, falcon-mamba in swap and
-   in recompute mode. Identical virtual timing and tokens identical up to
+   over the contiguous cache and the page pool, falcon-mamba and zamba2
+   in swap and in recompute mode. Identical virtual timing and tokens identical up to
    documented near-ties — the repo's differential check on a small input;
 5. the full-width llama3-8b engine, twice: over the physical page pool
    (page 16, paged decode kernel) and over the contiguous cache (decode
@@ -41,7 +47,12 @@ on those paths against its plain PyTorch version. Phases, in order:
    preemptions, the launch counters set to 0 before each run and read
    after: the scan kernel runs once per layer of every prefill group.
    Both runs must finish every request and agree on tokens up to bf16
-   near-ties.
+   near-ties;
+7. the full-width zamba2-2.7b engine, the same two runs over its hybrid
+   cache (k/v of the 9 shared-attention applications beside 45 Mamba-2
+   states): per prefill group 45 scan and 9 flash launches (hd 80), per
+   decode iteration 9 decode launches, no paged decode; the tight run
+   swaps whole hybrid slots out and back.
 
 It prints the kernels' JSON line, the card line, and last the result
 line {"ok": true, "device": {...}}. With no CUDA device, or outside a
@@ -214,9 +225,11 @@ def check_kernels(torch):
         return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
-    def decode_case(b, lengths, extra=""):
-        """Decode over a (b, 1024, 8, 128) cache; returns the inputs."""
+    def decode_case(b, lengths, extra="", heads=(32, 8, 128)):
+        """Decode over a (b, 1024, KV, hd) cache with `heads` = (H, KV,
+        hd); returns the inputs."""
         s = 1024
+        h, kv, hd = heads
         q = rnd(b, h, hd)
         k, v = rnd(b, s, kv, hd), rnd(b, s, kv, hd)
         lengths = lengths.cuda()
@@ -235,7 +248,6 @@ def check_kernels(torch):
         return row, (q, k, v, lengths, ctx, nbytes)
 
     # ---- decode: B=8, H=32, KV=8, hd=128, cache depth 1024, ragged ----
-    h, kv, hd = 32, 8, 128
     lengths = torch.randint(1, 1024 + 1, (8,), generator=gen).to(torch.int32)
     lengths[0] = 1024
     rows["decode_attention"], (q, k, v, lengths, ctx, nbytes) = decode_case(
@@ -243,6 +255,7 @@ def check_kernels(torch):
     dense = kc.decode_attention(q, k, v, lengths)
 
     # ---- paged: the same, page 16 (main path) and page 1 --------------
+    h, hd = 32, 128
     for page in (16, 1):
         kp, vp, bt = _paginate(torch, k, v, lengths, page, gen)
         tab_bytes = sum(-(-int(n) // page) for n in lengths.tolist()) * 4
@@ -263,10 +276,14 @@ def check_kernels(torch):
     del q, k, v, dense
     # ---- decode at B=1, full depth: one request decoding alone ---------
     decode_case(1, torch.tensor([1024], dtype=torch.int32), extra=" (B=1)")
+    # ---- decode at zamba2's shared attention: H = KV = 32, hd 80 -------
+    decode_case(8, lengths, heads=(32, 32, 80),
+                extra=" (zamba2: B=8, H=KV=32, hd 80)")
 
-    def flash_case(lengths, extra=""):
+    def flash_case(lengths, extra="", heads=(32, 8, 128)):
         """Causal prefill of len(lengths) rows of a 512 bucket."""
         b, s = len(lengths), 512
+        h, kv, hd = heads
         q = rnd(b, s, h, hd)
         k, v = rnd(b, s, kv, hd), rnd(b, s, kv, hd)
         lengths = torch.tensor(lengths, dtype=torch.int32).cuda()
@@ -291,9 +308,13 @@ def check_kernels(torch):
     rows["flash_attention"] = flash_case([512, 389, 200, 64])
     # ---- prefill: 1 x 512, the engine's usual group --------------------
     flash_case([512], extra=" (1 x 512)")
+    # ---- prefill at zamba2's shared attention, the engine's 1 x 512 ----
+    flash_case([512], heads=(32, 32, 80),
+               extra=" (zamba2: 1 x 512, H=KV=32, hd 80)")
     print(f"  launches by body (phase 3): {dict(kc.variant_launches)}",
           flush=True)
     rows["selective_scan"] = check_scan(torch, flush, gen)
+    check_ssd(torch, flush, gen)
     del flush
     torch.cuda.empty_cache()
     return rows
@@ -393,6 +414,93 @@ def check_scan(torch, flush, gen):
     return rows[0]
 
 
+def ssd_inputs(torch, gen, lengths, dtype, s=512, nh=80, hd=64, n=64):
+    """Mamba-2 inputs as the zamba2-2.7b prefill hands them over (rows of
+    a bucket of `s`, NH heads of HD channels, N states): x, B and C are
+    column slices of the conv output (x as a head view), dt per head is
+    zero past each row's length."""
+    b, di = len(lengths), nh * hd
+    lengths = torch.tensor(lengths)
+    xbc = torch.randn((b, s, di + 2 * n), generator=gen)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, nh), generator=gen) - 1)
+    dt = dt.masked_fill(torch.arange(s)[None, :, None]
+                        >= lengths[:, None, None], 0.0)
+    A = -torch.exp(torch.randn((nh,), generator=gen) * 0.5)
+    xbc, dt = xbc.to("cuda", dtype), dt.to("cuda", dtype)
+    return (xbc[..., :di].reshape(b, s, nh, hd), dt, A.cuda(),
+            xbc[..., di:di + n], xbc[..., di + n:],
+            torch.ones(nh, device="cuda"))
+
+
+def ssd_bound(torch, b, s, nh, hd, n):
+    """Two bounds of the Mamba-2 prefill -> (function ms, by, kernel exp
+    ms, detail). The function: x, dt (per head), y once, B and C once,
+    h_last once, against 6 f32 FLOPs per (b, t, channel, state) and one
+    exp per (b, t, head). The kernel, which takes the per-head dt and A
+    broadcast over the head's channels: one exp per (b, t, channel,
+    state)."""
+    d = nh * hd
+    el = b * s * d
+    nbytes = 2 * el * 2 + b * s * nh * 2 + 2 * b * s * n * 2 + \
+        b * d * n * 4 + 2 * nh * 4
+    flops = 6 * el * n + 3 * el
+    rate = exp_rate(torch)
+    f_ms, f_by = bound_ms(nbytes, (flops, F32_FLOPS), (b * s * nh, rate))
+    k_ms = el * n / rate * 1e3
+    return f_ms, f_by, k_ms, (
+        f"bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, f32 FLOPs "
+        f"{flops / F32_FLOPS * 1e3:.4f} ms; the kernel's {el * n / 1e6:.1f} "
+        f"M exp at {rate / 1e12:.3f} T/s {k_ms:.4f} ms")
+
+
+def check_ssd(torch, flush, gen):
+    """The scan kernel through Mamba-2's mapping (`ops.ssd_with_state`,
+    what the zamba2 prefill calls) at the full-width shapes: NH 80, HD 64,
+    N 64, rows of a 512 bucket, 1 x 512 (the engine's usual group) and
+    B=4 with ragged lengths. Against the plain Mamba-2 recurrence in f32
+    (1e-5 relative to max |y|) and bf16 (2e-2), the state within 1e-4;
+    timed in bf16, beside the kernel alone on the mapped arguments."""
+    from repro_torch.kernels import cuda as kc
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref
+    for lengths in ([512], [512, 389, 200, 64]):
+        label = f"B={len(lengths)} S=512 NH=80 HD=64 N=64"
+        for dtype, tol in ((torch.float32, F32_SCAN_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            args = ssd_inputs(torch, gen, lengths, dtype)
+            n0 = kc.launches["selective_scan"]
+            y, h = ops.ssd_with_state(*args)
+            torch.cuda.synchronize()
+            if kc.launches["selective_scan"] != n0 + 1:
+                fail("ops.ssd_with_state did not launch the scan kernel")
+            y_ref, h_ref = ref.ssd_with_state_ref(*args)
+            y_rel, h_rel = rel_err(y, y_ref), rel_err(h, h_ref)
+            print(f"  ssd via selective_scan ({str(dtype)[6:]}, {label}): "
+                  f"relative y err {y_rel:.3e} (tol {tol}); h_last "
+                  f"{h_rel:.3e} (tol {STATE_TOL})", flush=True)
+            if not (y_rel <= tol and h_rel <= STATE_TOL):
+                fail(f"ssd via selective_scan ({dtype}, {label}) disagrees "
+                     "with its plain version")
+        b, s, nh, hd = args[0].shape
+        n = args[3].shape[-1]
+        mapped = ops.ssd_scan_args(*args)
+        ms = time_ms(torch, lambda: ops.ssd_with_state(*args), flush)
+        k_ms = time_ms(torch, lambda: kc.selective_scan(
+            *mapped, return_state=True), flush)
+        plain_ms = time_ms(torch, lambda: ref.ssd_with_state_ref(*args),
+                           flush, iters=3, warmup=1)
+        f_ms, f_by, exp_ms, detail = ssd_bound(torch, b, s, nh, hd, n)
+        plan = kc.scan_plan(b, s, nh * hd, n)
+        print(f"  ssd via selective_scan (bf16, {label}, with h_last; plan "
+              f"{plan.npl} states per thread, {plan.steps} steps per chunk, "
+              f"{plan.threads} threads x {plan.grid} blocks): "
+              f"ops.ssd_with_state {ms:.4f} ms (kernel alone {k_ms:.4f} ms)"
+              f"  plain {plain_ms:.4f} ms  library none  bound {f_ms:.4f} "
+              f"ms ({f_by}: {detail}; call/bound {ms / f_ms:.2f}, "
+              f"kernel/exp bound {k_ms / exp_ms:.2f})", flush=True)
+
+
 # ---------------------------------------------------------------------------
 # engine runs
 # ---------------------------------------------------------------------------
@@ -465,7 +573,9 @@ def _to(tree, dev):
 
 SMALL_RUNS = (("llama3-8b", dict()), ("llama3-8b", dict(page_size=16)),
               ("falcon-mamba-7b", dict(preemption_mode="swap")),
-              ("falcon-mamba-7b", dict(preemption_mode="recompute")))
+              ("falcon-mamba-7b", dict(preemption_mode="recompute")),
+              ("zamba2-2.7b", dict(preemption_mode="swap")),
+              ("zamba2-2.7b", dict(preemption_mode="recompute")))
 
 
 def check_small_engine(torch):
@@ -677,6 +787,68 @@ def check_mamba_engine(torch):
     return {"selective_scan": scans}
 
 
+# the same probe for zamba2-2.7b: 12 swap preemptions on the virtual clock
+ZAMBA2_TIGHT_CAPACITY = 2048
+
+
+def check_zamba2_engine(torch):
+    """The full-width zamba2-2.7b engine (45 Mamba-2 layers in 9 rounds,
+    each round followed by the weight-shared attention+MLP block), with
+    ample and with tight capacity. Per prefill group: one scan launch per
+    Mamba-2 layer and one flash launch per round; per decode iteration
+    one decode launch per round; never the paged kernel."""
+    from repro_torch.configs.zamba2_2_7b import CONFIG
+    from repro_torch.kernels import cuda as kc
+
+    model, params = full_width_model(torch, CONFIG)
+    n_ssm = len(CONFIG.ssm_layer_ids())
+    n_attn = CONFIG.num_layers // CONFIG.hybrid_attn_every
+    trace = make_trace(12, CONFIG.vocab_size, 0, (64, 513), (32, 65), 0.05)
+    common = dict(num_slots=8, max_seq=1024, cache_dtype=torch.bfloat16)
+    runs = {}
+    total = dict.fromkeys(("selective_scan", "flash_attention",
+                           "decode_attention"), 0)
+    for name, cap in (("zamba2 ample", 8 * 1024),
+                      ("zamba2 tight", ZAMBA2_TIGHT_CAPACITY)):
+        runs[name], eng, n, timers = timed_run(
+            torch, model, params, trace, name, capacity=cap, **common)
+        groups = len(timers.get("prefill", []))
+        iters = sum(k for _, k in timers.get("decode", []))
+        want = {"selective_scan": n_ssm * groups,
+                "flash_attention": n_attn * groups,
+                "flash_attention/tensor_core": n_attn * groups,
+                "decode_attention": n_attn * iters,
+                "paged_decode_attention": 0}
+        for k, v in want.items():
+            if n[k] != v:
+                fail(f"engine {name}: {n[k]} {k} launches, expected {v} "
+                     f"({groups} prefill groups, {iters} decode iterations)")
+        for k in total:
+            total[k] += n[k]
+        if name == "zamba2 tight":
+            if not eng.preemptions:
+                fail("engine zamba2 tight: no preemption")
+            print(f"  zamba2 tight: {eng.preemptions} swap preemptions, "
+                  f"{eng.kv.swap_bytes_total / 1e6:.1f} MB of k/v and state "
+                  "swapped out to host memory", flush=True)
+    for k, v in total.items():
+        if v <= 0:
+            fail(f"kernel {k} was never launched on the zamba2 path")
+    chunk, splits = kc.decode_plan(common["max_seq"], common["num_slots"],
+                                   CONFIG.num_kv_heads, CONFIG.head_dim, 2)
+    print(f"  zamba2 launches as expected: {n_ssm} scans and {n_attn} flash "
+          f"per prefill group, {n_attn} decode per iteration, no paged "
+          f"decode; hd {CONFIG.head_dim} decode plan {splits} splits of "
+          f"{chunk}; scan plan at 1 x 512 "
+          f"{tuple(kc.scan_plan(1, 512, CONFIG.d_inner, 64)[:2])}",
+          flush=True)
+    check_bf16_flips(model, params, runs["zamba2 ample"],
+                     runs["zamba2 tight"], "zamba2 ample vs tight")
+    check_logits(torch, model, params, runs["zamba2 ample"][0].prompt_tokens)
+    profile_engine_steps(torch, model, params)
+    return total
+
+
 def profile_window(torch, label, fn, steps):
     """Trace fn() with torch.profiler: card-busy time (sum of kernel
     device time) against the synchronized host wall time of the window,
@@ -806,6 +978,11 @@ def main() -> None:
 
     print("[6] full-width falcon-mamba-7b engine (bf16):", flush=True)
     launches.update(check_mamba_engine(torch))
+    torch.cuda.empty_cache()
+
+    print("[7] full-width zamba2-2.7b engine (bf16):", flush=True)
+    for k, n in check_zamba2_engine(torch).items():
+        launches[k] += n
 
     kernels = []
     for name, (src, rep) in SOURCES.items():

@@ -4,8 +4,10 @@
     python3 scripts/scan_plan_sweep.py
 
 For the falcon-mamba-7b prefill shape (rows of a 512 bucket, d_inner 8192,
-N 16, B and C as column slices of the x_proj output) at 1 x 512 (the
-engine's usual prefill group) and at B=4 with ragged lengths, each
+N 16, B and C as column slices of the x_proj output) and the zamba2-2.7b
+Mamba-2 prefill mapped onto the scan (`ops.ssd_scan_args`: 80 heads of 64
+channels, D 5120, N 64) at 1 x 512 (the engine's usual prefill group) and
+at B=4 with ragged lengths, each
 (states per thread, steps per chunk) the kernel takes replaces the
 wrapper's plan (`scan_plan`); each variant is checked against the plain
 version (bf16 2e-2 and f32 1e-5 relative to max |y|, the final state
@@ -25,7 +27,14 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import chip_smoke as cs  # noqa: E402
 
-SHAPES = ([512], [512, 389, 200, 64])
+def mamba2_inputs(torch, gen, lengths, dtype):
+    """zamba2's Mamba-2 inputs as the scan kernel receives them."""
+    from repro_torch.kernels import ops
+    return ops.ssd_scan_args(*cs.ssd_inputs(torch, gen, lengths, dtype))
+
+
+SHAPES = [(make, lengths) for make in (cs.scan_inputs, mamba2_inputs)
+          for lengths in ([512], [512, 389, 200, 64])]
 
 
 def main() -> None:
@@ -38,11 +47,11 @@ def main() -> None:
     flush = cs._L2Flush(torch)
     gen = torch.Generator().manual_seed(0)
     plan = kc.scan_plan
-    for lengths in SHAPES:
+    for make, lengths in SHAPES:
         cases = []
         for dtype, tol in ((torch.float32, cs.F32_SCAN_TOL),
                            (torch.bfloat16, cs.BF16_TOL)):
-            args = cs.scan_inputs(torch, gen, lengths, dtype)
+            args = make(torch, gen, lengths, dtype)
             cases.append((dtype, tol, args,
                           ref.selective_scan_with_state_ref(*args)))
         b, s, d = args[0].shape

@@ -8,11 +8,15 @@ tensors, so a leaf's path and shape are the same on both sides.
 - ``from_numpy``: the reference's tree with numpy leaves (``np.asarray``
   of each JAX array) -> the port's dict of tensors on `device`.
 - ``to_numpy``: back (bf16 leaves widen to float32, numpy has no bf16).
-- ``init_params``: fresh weights for the dense and ssm families,
+- ``init_params``: fresh weights for the dense, ssm and hybrid families,
   following the reference's init (``src/repro/models/transformer.py:39-121``
-  and ``models/ssm.py:init_mamba1``): normal with std 0.02, the embedding
-  with std 1.0, norm scales one, biases zero; Mamba-1's conv with std 0.1,
-  dt_proj with std dt_rank^-0.5, dt_bias -2, A_log = log(1..N), D one.
+  and ``models/ssm.py:init_mamba1`` / ``init_mamba2``): normal with std
+  0.02, the embedding with std 1.0, norm scales one, biases zero; Mamba-1's
+  conv with std 0.1, dt_proj with std dt_rank^-0.5, dt_bias -2,
+  A_log = log(1..N), D one; Mamba-2's conv with std 0.1, dt_bias -2,
+  A_log = log(1..NH), D and the gated norm's scale one. The hybrid tree is
+  ``rounds`` (norm_scale and mamba leaves on (rounds, per_round) axes)
+  and one ``shared`` attention+MLP block with no layer axis.
   A torch generator cannot reproduce ``jax.random``, so tests that
   compare the two frameworks bridge the reference's weights instead.
 """
@@ -48,14 +52,16 @@ def to_numpy(tree):
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
                 dtype=torch.float32):
-    """Random params of a dense or ssm model in the reference's tree layout.
+    """Random params of a dense, ssm or hybrid model in the reference's
+    tree layout.
 
     Draws on the generator's device in f32 (one layer at a time, so a
     full-width 7-8B config never holds a whole f32 stack) and stores in
     `dtype` on `device`."""
-    if cfg.kind not in ("dense", "ssm"):
+    if cfg.kind not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"model kind {cfg.kind!r} is not ported yet (dense, ssm)")
+            f"model kind {cfg.kind!r} is not ported yet (dense, ssm, "
+            "hybrid)")
     dev = resolve_device(device)
     gdev = generator.device
 
@@ -73,6 +79,24 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
     L, d = cfg.num_layers, cfg.d_model
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     ones = lambda *s: torch.ones(s, dtype=dtype, device=dev)     # noqa: E731
+    full = lambda v, *s: torch.full(s, v, dtype=dtype, device=dev)  # noqa: E731
+
+    def attn_mlp(n):
+        """Attention and MLP leaves, stacked n deep (n=None: no axis)."""
+        lead = () if n is None else (n,)
+        draw = normal if n is None else (lambda shape: stacked(n, shape))
+        attn = {"wq": draw((d, h * hd)), "wk": draw((d, kv * hd)),
+                "wv": draw((d, kv * hd)), "wo": draw((h * hd, d))}
+        if cfg.qkv_bias:
+            attn.update(bq=full(0.0, *lead, h * hd),
+                        bk=full(0.0, *lead, kv * hd),
+                        bv=full(0.0, *lead, kv * hd))
+        mlp = {"up": draw((d, cfg.d_ff)), "down": draw((cfg.d_ff, d))}
+        if cfg.gated_mlp:
+            mlp["gate"] = draw((d, cfg.d_ff))
+        return {"attn_norm_scale": ones(*lead, d), "attn": attn,
+                "mlp_norm_scale": ones(*lead, d), "mlp": mlp}
+
     params = {
         "embed": {"table": normal((cfg.vocab_size, d), std=1.0)},
         "final_norm": {"scale": ones(d)},
@@ -82,7 +106,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
     if cfg.kind == "ssm":
         di, n, k = cfg.d_inner, cfg.ssm.d_state, cfg.ssm.d_conv
         r = max(d // 16, 1)
-        full = lambda v, *s: torch.full(s, v, dtype=dtype, device=dev)  # noqa: E731
         a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32))
         params["blocks"] = {
             "norm_scale": ones(L, d),
@@ -99,22 +122,33 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
             },
         }
         return params
-    attn = {
-        "wq": stacked(L, (d, h * hd)),
-        "wk": stacked(L, (d, kv * hd)),
-        "wv": stacked(L, (d, kv * hd)),
-        "wo": stacked(L, (h * hd, d)),
-    }
-    if cfg.qkv_bias:
-        z = lambda n: torch.zeros((L, n), dtype=dtype, device=dev)  # noqa: E731
-        attn.update(bq=z(h * hd), bk=z(kv * hd), bv=z(kv * hd))
-    mlp = {"up": stacked(L, (d, cfg.d_ff)), "down": stacked(L, (cfg.d_ff, d))}
-    if cfg.gated_mlp:
-        mlp["gate"] = stacked(L, (d, cfg.d_ff))
-    params["blocks"] = {
-        "attn_norm_scale": ones(L, d),
-        "attn": attn,
-        "mlp_norm_scale": ones(L, d),
-        "mlp": mlp,
-    }
+    if cfg.kind == "hybrid":
+        s = cfg.ssm
+        di, n, k = cfg.d_inner, s.d_state, s.d_conv
+        nh = di // s.headdim
+        every = cfg.hybrid_attn_every
+        assert L % every == 0, (L, every)
+        rounds, per = L // every, every - 1
+        m = rounds * per
+
+        def grid(t):            # (rounds * per_round, ...) -> (R, P, ...)
+            return t.view(rounds, per, *t.shape[1:])
+
+        a_log = torch.log(torch.arange(1, nh + 1, dtype=torch.float32))
+        params["rounds"] = {
+            "norm_scale": ones(rounds, per, d),
+            "mamba": {key: grid(t) for key, t in {
+                "in_proj": stacked(m, (d, 2 * di + 2 * n + nh)),
+                "conv_w": stacked(m, (k, di + 2 * n), std=0.1),
+                "conv_b": full(0.0, m, di + 2 * n),
+                "dt_bias": full(-2.0, m, nh),
+                "A_log": a_log.expand(m, nh).to(device=dev, dtype=dtype),
+                "D": ones(m, nh),
+                "norm_scale": ones(m, di),
+                "out_proj": stacked(m, (di, d)),
+            }.items()},
+        }
+        params["shared"] = attn_mlp(None)
+        return params
+    params["blocks"] = attn_mlp(L)
     return params

@@ -223,6 +223,7 @@ INPUT_SHAPES = {
 ARCH_IDS = (
     "llama3-8b",
     "falcon-mamba-7b",
+    "zamba2-2.7b",
 )
 
 _MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}

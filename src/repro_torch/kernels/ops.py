@@ -9,6 +9,13 @@ serving path's bucketed and chunked prefill run on it. Likewise the
 scan kernel also returns the final state, so the serving prefill
 (``selective_scan_with_state``) runs on it and not only the full-sequence
 forward.
+
+Mamba-2's recurrence (``ssd``) runs on the same scan kernel: it is the
+selective scan with each head's dt, A and D broadcast over the head's
+channels (``ssd_scan_args``). The reference's chunked SSD
+(``src/repro/kernels/ops.py:_ssd_chunked``) is its TPU kernelisation in
+XLA, not a Pallas kernel, and like Mamba-1's ``"chunked"`` scan it has no
+counterpart here.
 """
 from __future__ import annotations
 
@@ -74,3 +81,44 @@ def selective_scan_step(h, x, dt, A, B, C, D):
     """One decode step of the recurrence, plain torch on every device (as
     the reference: a handful of elementwise ops, no kernel)."""
     return _ref.selective_scan_step_ref(h, x, dt, A, B, C, D)
+
+
+def ssd_scan_args(x, dt, A, B, C, D):
+    """Mamba-2's arguments as the selective scan's, channel c = head * HD
+    + p: x (B,S,NH,HD) -> contiguous (B,S,NH*HD); dt (B,S,NH) -> each
+    head's dt repeated over its HD channels, contiguous, in x's dtype;
+    A (NH,) -> (NH*HD, N); D (NH,) -> (NH*HD,); B and C as they are
+    (column slices of the conv output, unit last stride). The scan's
+    h_last (B, NH*HD, N) is then (B, NH, HD, N) as a view."""
+    b, s, nh, hd = x.shape
+    n = B.shape[-1]
+    xs = x.reshape(b, s, nh * hd).contiguous()
+    dts = dt.to(x.dtype).repeat_interleave(hd, dim=-1)
+    As = A.float().repeat_interleave(hd)[:, None].expand(nh * hd, n)
+    return xs, dts, As, B, C, D.float().repeat_interleave(hd)
+
+
+def ssd(x, dt, A, B, C, D):
+    """Mamba-2 recurrence. x (B,S,NH,HD); dt (B,S,NH); A (NH,); B, C
+    (B,S,N); D (NH,) -> y (B,S,NH,HD) in x's dtype."""
+    if x.is_cuda:
+        return _cuda.selective_scan(*ssd_scan_args(x, dt, A, B, C, D)
+                                    ).view(x.shape)
+    return _ref.ssd_ref(x, dt, A, B, C, D)
+
+
+def ssd_with_state(x, dt, A, B, C, D):
+    """The recurrence and its final state: -> (y (B,S,NH,HD),
+    h_last (B,NH,HD,N) f32)."""
+    if x.is_cuda:
+        y, h = _cuda.selective_scan(*ssd_scan_args(x, dt, A, B, C, D),
+                                    return_state=True)
+        b, _, nh, hd = x.shape
+        return y.view(x.shape), h.view(b, nh, hd, -1)
+    return _ref.ssd_with_state_ref(x, dt, A, B, C, D)
+
+
+def ssd_step(h, x, dt, A, B, C, D):
+    """One decode step of the Mamba-2 recurrence, plain torch on every
+    device (as ``selective_scan_step``)."""
+    return _ref.ssd_step_ref(h, x, dt, A, B, C, D)

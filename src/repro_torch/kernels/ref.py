@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the attention and selective-scan kernels.
+"""Plain PyTorch versions of the attention and scan kernels (Mamba-1's
+selective scan and Mamba-2's state-space-dual recurrence).
 
 The semantic ground truth, line for line with ``src/repro/kernels/ref.py``:
 the CPU path of every dispatch in ``kernels/ops.py`` and the yardstick the
@@ -153,4 +154,53 @@ def selective_scan_step_ref(
     dA = torch.exp(dt[..., None] * A[None])
     h = dA * h + dt[..., None] * B[:, None, :] * x[..., None]
     y = torch.einsum("bdn,bn->bd", h, C) + x * D[None]
+    return h, y
+
+
+def ssd_with_state_ref(
+    x: torch.Tensor,     # (B, S, NH, HD)
+    dt: torch.Tensor,    # (B, S, NH)  softplus'd
+    A: torch.Tensor,     # (NH,)       negative scalar per head
+    B: torch.Tensor,     # (B, S, N)
+    C: torch.Tensor,     # (B, S, N)
+    D: torch.Tensor,     # (NH,)
+):
+    """Mamba-2 state-space-dual recurrence, sequential, with the final
+    state.
+
+    Per head: h_t = exp(dt_t * A) h_{t-1} + dt_t * x_t B_t^T,
+    y_t = h_t C_t + D x_t. The arithmetic of the reference's
+    ``ssm._ssd_with_state``: f32 state from zero, y cast to x's dtype,
+    h_last (B, NH, HD, N) kept f32."""
+    bsz, s, nh, hd = x.shape
+    n = B.shape[-1]
+    A = A.float()
+    h = torch.zeros((bsz, nh, hd, n), dtype=torch.float32, device=x.device)
+    xf, dtf, Bf, Cf = (t.float() for t in (x, dt, B, C))
+    y = torch.empty((bsz, s, nh, hd), dtype=torch.float32, device=x.device)
+    for t in range(s):
+        da = torch.exp(dtf[:, t] * A[None])                     # (B, NH)
+        dbx = (dtf[:, t, :, None, None] * xf[:, t, ..., None]
+               * Bf[:, t, None, None, :])
+        h = da[..., None, None] * h + dbx
+        y[:, t] = torch.einsum("bhdn,bn->bhd", h, Cf[:, t])
+    y = y + xf * D.float()[None, None, :, None]
+    return y.to(x.dtype), h
+
+
+def ssd_ref(x, dt, A, B, C, D) -> torch.Tensor:
+    """Mamba-2 recurrence, sequential oracle. Returns y (B, S, NH, HD) in
+    x's dtype (the reference's ``ssd_ref``)."""
+    return ssd_with_state_ref(x, dt, A, B, C, D)[0]
+
+
+def ssd_step_ref(h, x, dt, A, B, C, D):
+    """One decode step of the Mamba-2 recurrence.
+
+    h (B,NH,HD,N), x (B,NH,HD), dt (B,NH), A (NH,), B/C (B,N), D (NH,).
+    Returns (h', y) with y (B,NH,HD)."""
+    da = torch.exp(dt * A[None])
+    h = (da[..., None, None] * h
+         + dt[..., None, None] * x[..., None] * B[:, None, None, :])
+    y = torch.einsum("bhdn,bn->bhd", h, C) + x * D[None, :, None]
     return h, y

@@ -1,19 +1,26 @@
-"""Decode caches: static-slot KV or SSM-state cache and the physical page
-pool.
+"""Decode caches: static-slot KV, SSM-state or hybrid cache and the
+physical page pool.
 
 Layouts are the reference's (``src/repro/models/cache.py``):
 
   length        (B,)                       valid context tokens per slot
   ssm_h         (L, B, d_inner, N) f32     Mamba-1 scan state
+  ssm_h         (L, B, NH, HD, N) f32      Mamba-2 scan state per head
   ssm_conv      (L, B, d_conv-1, d_inner)  Mamba-1 conv buffer
+  ssm_conv      (L, B, d_conv-1, d_inner + 2N)  Mamba-2 conv buffer (x, B, C)
   k, v          (L, B, S_max, KV, hd)      contiguous cache rows
   k, v          (L, P, page, KV, hd)       physical page pool
   block_tables  (B, max_pages) int32       page ids per slot, ordered;
                                            entries >= P are sentinels
 
-`length` is the single validity gate in both layouts: attention never
-reads past it, and the next decode write lands on the first stale
-position, so rolling back a multi-step overshoot is re-pinning `length`.
+A hybrid cache holds k/v for each application of the shared attention
+block (L = num_layers // hybrid_attn_every) beside the Mamba-2 leaves
+(L = its Mamba-2 layers, rounds x per_round in the reference's order).
+
+For attention, `length` is the single validity gate in both layouts:
+attention never reads past it, and the next decode write lands on the
+first stale position, so rolling back a multi-step overshoot is
+re-pinning `length`. Recurrent state has no such gate (ssm, hybrid).
 
 The reference relies on JAX's out-of-range rules, which torch does not
 share; each case is spelled out here: sentinel scatters drop, gathers
@@ -30,17 +37,21 @@ from repro_torch.device import resolve_device
 def _num_attn_applications(cfg: ModelConfig) -> int:
     if cfg.kind == "ssm":
         return 0
-    if cfg.kind not in ("dense", "vlm", "moe"):
+    if cfg.kind not in ("dense", "vlm", "moe", "hybrid"):
         raise NotImplementedError(
-            f"model kind {cfg.kind!r} is not ported yet (dense, ssm)")
+            f"model kind {cfg.kind!r} is not ported yet (dense, ssm, "
+            "hybrid)")
+    if cfg.hybrid_attn_every:
+        return cfg.num_layers // cfg.hybrid_attn_every
     return cfg.num_layers
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                dtype=torch.bfloat16, device="cuda"):
-    """Contiguous decode cache, zero-filled. Attention layers get k/v;
-    Mamba-1 layers get the scan state ssm_h (L, B, d_inner, N) in f32 and
-    the conv buffer ssm_conv (L, B, d_conv-1, d_inner) in `dtype`."""
+    """Contiguous decode cache, zero-filled. Attention layers (or shared
+    attention applications) get k/v; Mamba layers get the scan state
+    ssm_h in f32 and the conv buffer ssm_conv in `dtype`, in the module
+    docstring's Mamba-1 or Mamba-2 layout."""
     dev = resolve_device(device)
     cache = {"length": torch.zeros((batch,), dtype=torch.int32, device=dev)}
     n = _num_attn_applications(cfg)
@@ -51,10 +62,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
     n_ssm = len(cfg.ssm_layer_ids())
     if n_ssm:
         s, di = cfg.ssm, cfg.d_inner
-        cache["ssm_h"] = torch.zeros((n_ssm, batch, di, s.d_state),
+        if s.version == 2:
+            state = (di // s.headdim, s.headdim, s.d_state)
+            conv_dim = di + 2 * s.d_state
+        else:
+            state, conv_dim = (di, s.d_state), di
+        cache["ssm_h"] = torch.zeros((n_ssm, batch, *state),
                                      dtype=torch.float32, device=dev)
-        cache["ssm_conv"] = torch.zeros((n_ssm, batch, s.d_conv - 1, di),
-                                        dtype=dtype, device=dev)
+        cache["ssm_conv"] = torch.zeros((n_ssm, batch, s.d_conv - 1,
+                                         conv_dim), dtype=dtype, device=dev)
     return cache
 
 

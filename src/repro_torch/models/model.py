@@ -6,8 +6,8 @@
   logits, cache = model.prefill(params, {"tokens": t, "lengths": n}, cache)
   logits, cache = model.decode_step(params, tokens, cache)
 
-The counterpart of ``src/repro/models/model.py`` for the dense and ssm
-(Mamba-1) families.
+The counterpart of ``src/repro/models/model.py`` for the dense, ssm
+(Mamba-1) and hybrid (Mamba-2 + shared attention) families.
 Params are the reference's stacked tree as a dict of tensors
 (``repro_torch.bridge``). Caches are updated in place.
 """
@@ -60,10 +60,10 @@ class Model:
         """Run the prompt, fill the cache, return last-token logits.
 
         batch: {"tokens": (B, S) [, "lengths": (B,)]}; cache from
-        init_cache (depth >= S), written in place at positions [0, S) —
-        the whole padded row, as the reference's dynamic_update_slice —
-        or, for ssm, with each row's state at its last valid token. Writes
-        cast to the cache's dtypes.
+        init_cache (depth >= S): k/v written in place at positions
+        [0, S) — the whole padded row, as the reference's
+        dynamic_update_slice — and the ssm leaves with each row's state at
+        its last valid token. Writes cast to the cache's dtypes.
         Returns (logits (B, V), cache')."""
         cfg = self.cfg
         tokens = batch["tokens"]

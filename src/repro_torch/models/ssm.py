@@ -1,16 +1,20 @@
-"""Mamba-1 block: full-sequence forward, prefill with decode state, and one
-decode step — the Mamba-1 half of ``src/repro/models/ssm.py``.
+"""Mamba-1 and Mamba-2 blocks: full-sequence forward, prefill with decode
+state, and one decode step — ``src/repro/models/ssm.py``.
 
 State carried per request (the SSM analogue of the KV cache, constant in
-size): a conv buffer (d_conv-1, d_inner) in the cache dtype and a scan
-state (d_inner, N) in f32.
+size), in the cache dtype for the conv buffer and f32 for the scan state:
+Mamba-1 a conv buffer (d_conv-1, d_inner) and a state (d_inner, N);
+Mamba-2 a conv buffer (d_conv-1, d_inner + 2N) over x, B and C, and a
+state (NH, HD, N) per head.
 
 The scans go through ``kernels.ops``: on CUDA tensors the hand-written
 selective-scan kernel, which also writes the final state, so the serving
 prefill runs on it (the reference's prefill reruns a sequential scan for
 the state). ``B`` and ``C`` reach the kernel as column slices of the
 x_proj output, strided views the kernel takes as they are; x and dt are
-contiguous.
+contiguous. Mamba-2's recurrence reaches the same kernel through
+``ops.ssd`` / ``ops.ssd_with_state`` (per-head dt, A and D broadcast over
+the head's channels).
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models.layers import rms_norm
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -116,3 +121,84 @@ def mamba1_decode(p, x_tok: torch.Tensor, state, cfg: ModelConfig):
         p["D"].float())
     y = y.to(x_tok.dtype) * F.silu(z)
     return y @ p["out_proj"], {"h": h, "conv": conv}
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2
+# ---------------------------------------------------------------------------
+
+def _mamba2_split(p, x: torch.Tensor, cfg: ModelConfig):
+    """in_proj -> (z, xbc, dt, nh): z (.., di), xbc (.., di + 2N) the conv's
+    input (x, B, C), dt (.., nh) before softplus; views of one product."""
+    s = cfg.ssm
+    di = cfg.d_inner
+    nh = di // s.headdim
+    zxbcdt = x @ p["in_proj"]
+    return (zxbcdt[..., :di], zxbcdt[..., di:2 * di + 2 * s.d_state],
+            zxbcdt[..., -nh:], nh)
+
+
+def _mamba2_out(p, y: torch.Tensor, z: torch.Tensor, cfg: ModelConfig):
+    """Gated norm and out_proj: rms_norm(y * silu(z)) @ out_proj."""
+    return rms_norm(y * F.silu(z), p["norm_scale"], cfg.norm_eps) \
+        @ p["out_proj"]
+
+
+def mamba2_apply(p, x: torch.Tensor, cfg: ModelConfig, *, lengths=None,
+                 return_state: bool = False):
+    """Full-sequence Mamba-2 (SSD) block. x (B, S, d) -> (B, S, d), and
+    with return_state the decode state at position lengths-1 of each
+    right-padded row: dt is zeroed past `lengths` (padding leaves the
+    recurrence alone) and the conv buffer holds each row's last K-1 valid
+    conv inputs, gathered from xbc before the conv."""
+    s = cfg.ssm
+    di = cfg.d_inner
+    b, slen, _ = x.shape
+    z, xbc, dt, nh = _mamba2_split(p, x, cfg)
+    conv_prev = None
+    if return_state:
+        eff = lengths if lengths is not None else torch.full(
+            (b,), slen, dtype=torch.int32, device=x.device)
+        conv_prev = _gather_last(xbc, eff, p["conv_w"].shape[0] - 1)
+    xbc_c, _ = _causal_conv(xbc, p["conv_w"])
+    xbc_c = F.silu(xbc_c + p["conv_b"])
+    x_in = xbc_c[..., :di].reshape(b, slen, nh, s.headdim)
+    B = xbc_c[..., di:di + s.d_state]
+    C = xbc_c[..., di + s.d_state:]
+    dt = softplus(dt + p["dt_bias"])
+    if lengths is not None:
+        pad = torch.arange(slen, device=x.device)[None] >= lengths[:, None]
+        dt = dt.masked_fill(pad[..., None], 0.0)
+    A = -torch.exp(p["A_log"].float())
+    if return_state:
+        y, h_last = ops.ssd_with_state(x_in, dt, A, B, C, p["D"].float())
+    else:
+        y = ops.ssd(x_in, dt, A, B, C, p["D"].float())
+    out = _mamba2_out(p, y.reshape(b, slen, di), z, cfg)
+    if return_state:
+        return out, {"h": h_last, "conv": conv_prev}
+    return out
+
+
+def mamba2_prefill(p, x: torch.Tensor, cfg: ModelConfig, lengths):
+    return mamba2_apply(p, x, cfg, lengths=lengths, return_state=True)
+
+
+def mamba2_decode(p, x_tok: torch.Tensor, state, cfg: ModelConfig):
+    """One-token decode. x_tok (B, d); state {"h": (B, NH, HD, N) f32,
+    "conv": (B, K-1, di + 2N)}. Returns (out (B, d), new state)."""
+    s = cfg.ssm
+    di = cfg.d_inner
+    b = x_tok.shape[0]
+    z, xbc, dt, nh = _mamba2_split(p, x_tok, cfg)
+    xbc_c, conv = _conv_step(xbc, p["conv_w"], state["conv"])
+    xbc_c = F.silu(xbc_c + p["conv_b"])
+    x_in = xbc_c[..., :di].reshape(b, nh, s.headdim)
+    B = xbc_c[..., di:di + s.d_state]
+    C = xbc_c[..., di + s.d_state:]
+    dt = softplus(dt + p["dt_bias"])
+    A = -torch.exp(p["A_log"].float())
+    h, y = ops.ssd_step(state["h"], x_in.float(), dt.float(), A, B.float(),
+                        C.float(), p["D"].float())
+    y = y.reshape(b, di).to(x_tok.dtype)
+    return _mamba2_out(p, y, z, cfg), {"h": h, "conv": conv}

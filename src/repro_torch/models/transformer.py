@@ -2,8 +2,9 @@
 
 Weights are stacked with a leading layer axis, as in the reference
 (``src/repro/models/transformer.py``), whose ``jax.lax.scan`` over the
-layers becomes a Python loop here. The dense and ssm (Mamba-1) families
-are ported; the others raise.
+layers becomes a Python loop here. The dense, ssm (Mamba-1) and hybrid
+(Mamba-2 rounds, each followed by one weight-shared attention+MLP block)
+families are ported; the others raise.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ def layer_params(tree, i: int):
     return tree[i]
 
 
-PORTED_KINDS = ("dense", "ssm")
+PORTED_KINDS = ("dense", "ssm", "hybrid")
 
 
 def check_kind(cfg: ModelConfig) -> None:
@@ -42,12 +43,17 @@ def forward(params, cfg: ModelConfig, batch, *,
     Returns (logits, aux) or, with collect_cache, (logits, aux, parts)
     where parts holds each layer's cache planes: {"k": [L x (B, S, KV,
     hd)], "v": [...]} for dense, {"ssm_h": [L x (B, di, N)], "ssm_conv":
-    [L x (B, K-1, di)]} for ssm. With return_hidden the final-normed
-    hidden states replace the logits."""
+    [L x (B, K-1, di)]} for ssm, and for hybrid k/v per round beside
+    {"ssm_h": [L_ssm x (B, NH, HD, N)], "ssm_conv": [L_ssm x (B, K-1,
+    di + 2N)]} in rounds x per_round order. With return_hidden the
+    final-normed hidden states replace the logits."""
     check_kind(cfg)
     h = embed_apply(params["embed"], batch["tokens"])
     if cfg.kind == "ssm":
         h, parts = _forward_ssm(params, cfg, h, collect_cache, lengths)
+    elif cfg.kind == "hybrid":
+        h, parts = _forward_hybrid(params, cfg, h, window, collect_cache,
+                                   lengths)
     else:
         h, parts = _forward_dense(params, cfg, h, window, lengths)
     h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
@@ -73,6 +79,43 @@ def _forward_ssm(params, cfg, h, collect_cache, lengths):
     return h, {"ssm_h": hs, "ssm_conv": convs}
 
 
+def _rounds(params):
+    """(rounds, per_round) of a hybrid tree."""
+    return tuple(params["rounds"]["norm_scale"].shape[:2])
+
+
+def _add_mlp(bp, cfg, h, a):
+    """Residual add of an attention output `a`, then the block's MLP."""
+    h = h + a
+    x = rms_norm(h, bp["mlp_norm_scale"], cfg.norm_eps)
+    return h + mlp_apply(bp["mlp"], x)
+
+
+def _forward_hybrid(params, cfg, h, window, collect_cache, lengths):
+    shared = params["shared"]
+    rounds, per = _rounds(params)
+    ks, vs, hs, convs = [], [], [], []
+    for r in range(rounds):
+        rp = layer_params(params["rounds"], r)
+        for j in range(per):
+            lp = layer_params(rp, j)
+            x = rms_norm(h, lp["norm_scale"], cfg.norm_eps)
+            if collect_cache:
+                y, st = ssm_lib.mamba2_prefill(lp["mamba"], x, cfg, lengths)
+                hs.append(st["h"])
+                convs.append(st["conv"])
+            else:
+                y = ssm_lib.mamba2_apply(lp["mamba"], x, cfg)
+            h = h + y
+        x = rms_norm(h, shared["attn_norm_scale"], cfg.norm_eps)
+        a, k, v = attn.attn_prefill(shared["attn"], x, cfg, window=window,
+                                    lengths=lengths)
+        ks.append(k)
+        vs.append(v)
+        h = _add_mlp(shared, cfg, h, a)
+    return h, {"k": ks, "v": vs, "ssm_h": hs, "ssm_conv": convs}
+
+
 def _forward_dense(params, cfg, h, window, lengths):
     ks, vs = [], []
     for i in range(cfg.num_layers):
@@ -82,9 +125,7 @@ def _forward_dense(params, cfg, h, window, lengths):
                                     lengths=lengths)
         ks.append(k)
         vs.append(v)
-        h = h + a
-        x = rms_norm(h, bp["mlp_norm_scale"], cfg.norm_eps)
-        h = h + mlp_apply(bp["mlp"], x)
+        h = _add_mlp(bp, cfg, h, a)
     return h, {"k": ks, "v": vs}
 
 
@@ -92,14 +133,17 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, *,
                 window: Optional[int] = None):
     """One decode iteration: tokens (B,) int32 -> (logits (B, V), cache').
 
-    The cache's k/v (or ssm_h/ssm_conv) are updated in place; the
-    returned dict carries length + 1. A cache with `block_tables` routes
-    through the page pool (one write plan serves every layer)."""
+    The cache's k/v (or ssm_h/ssm_conv, or all four for hybrid) are
+    updated in place; the returned dict carries length + 1. A cache with
+    `block_tables` routes through the page pool (one write plan serves
+    every layer)."""
     check_kind(cfg)
     lengths = cache["length"]
     h = embed_apply(params["embed"], tokens)
     if cfg.kind == "ssm":
         h = _decode_ssm(params, cfg, h, cache)
+    elif cfg.kind == "hybrid":
+        h = _decode_hybrid(params, cfg, h, cache, window)
     else:
         h = _decode_dense(params, cfg, h, cache, window)
     h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
@@ -116,6 +160,29 @@ def _decode_ssm(params, cfg, h, cache):
         cache["ssm_h"][i] = st["h"]
         cache["ssm_conv"][i] = st["conv"]
         h = h + y
+    return h
+
+
+def _decode_hybrid(params, cfg, h, cache, window):
+    shared = params["shared"]
+    rounds, per = _rounds(params)
+    lengths = cache["length"]
+    for r in range(rounds):
+        rp = layer_params(params["rounds"], r)
+        for j in range(per):
+            lp = layer_params(rp, j)
+            i = r * per + j
+            x = rms_norm(h, lp["norm_scale"], cfg.norm_eps)
+            y, st = ssm_lib.mamba2_decode(
+                lp["mamba"], x,
+                {"h": cache["ssm_h"][i], "conv": cache["ssm_conv"][i]}, cfg)
+            cache["ssm_h"][i] = st["h"]
+            cache["ssm_conv"][i] = st["conv"]
+            h = h + y
+        x = rms_norm(h, shared["attn_norm_scale"], cfg.norm_eps)
+        a, _, _ = attn.attn_decode(shared["attn"], x, cache["k"][r],
+                                   cache["v"][r], lengths, cfg, window=window)
+        h = _add_mlp(shared, cfg, h, a)
     return h
 
 
@@ -137,7 +204,5 @@ def _decode_dense(params, cfg, h, cache, window):
         else:
             a, _, _ = attn.attn_decode(bp["attn"], x, kc, vc, lengths, cfg,
                                        window=window)
-        h = h + a
-        x = rms_norm(h, bp["mlp_norm_scale"], cfg.norm_eps)
-        h = h + mlp_apply(bp["mlp"], x)
+        h = _add_mlp(bp, cfg, h, a)
     return h

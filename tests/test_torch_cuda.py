@@ -15,7 +15,9 @@ checked for zeros and left out of the comparison. The decode kernels'
 split-KV edges (lengths at a split boundary and either side of it, a
 window that empties whole splits, the in-kernel merge's counters over two
 calls in a row) and the tensor-core flash body (bf16; f32 runs the
-CUDA-core body) are covered case by case, hd 80 included.
+CUDA-core body) are covered case by case, hd 80 included. Mamba-2 runs on
+the scan kernel through ``ops.ssd_scan_args`` and is held against the plain
+Mamba-2 recurrence at the scan's tolerances, N 64 and D 5120 included.
 """
 import numpy as np
 import pytest
@@ -377,6 +379,128 @@ def test_selective_scan_kernel_refuses_bad_inputs(dev):
                              dt, A, B, C, D)
     with pytest.raises(ValueError, match="dtype"):
         tcuda.selective_scan(x, dt, A, B.to(torch.bfloat16), C, D)
+
+
+def _ssd_args(b, s, nh, hd, n, dtype, dev, seed=21):
+    """Mamba-2 inputs as the hybrid prefill hands them over: x, B and C
+    column slices of one conv output (x as a head view), dt per head and
+    zero past each row's length."""
+    g = torch.Generator().manual_seed(seed)
+    di = nh * hd
+    xbc = torch.randn((b, s, di + 2 * n), generator=g)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, nh), generator=g)
+                                      - 1)
+    lens = torch.randint(1, s + 1, (b,), generator=g)
+    lens[0] = s
+    dt = dt.masked_fill(torch.arange(s)[None, :, None] >= lens[:, None, None],
+                        0.0)
+    A = -torch.exp(torch.randn((nh,), generator=g) * 0.5)
+    xbc, dt = xbc.to(device=dev, dtype=dtype), dt.to(device=dev, dtype=dtype)
+    return (xbc[..., :di].reshape(b, s, nh, hd), dt, A.to(dev),
+            xbc[..., di:di + n], xbc[..., di + n:],
+            torch.full((nh,), 0.3, device=dev))
+
+
+SSD_CASES = [
+    # (b, s, nh, hd, n): zamba2's state size and head width, its full
+    # d_inner (80 x 64 = 5120) at a short S, a ragged S and heads that
+    # leave a block's 32 channels part-filled
+    (2, 40, 4, 64, 64), (1, 24, 80, 64, 64), (3, 77, 3, 48, 64),
+    (2, 33, 8, 64, 16),
+]
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_through_scan_kernel(dev, case, dtype):
+    """Mamba-2's recurrence on the scan kernel (`ops.ssd_with_state`)
+    against the plain Mamba-2 recurrence: the scan's tolerances relative
+    to max |y| (f32 1e-5, bf16 2e-2; the f32 state 1e-4), one launch per
+    call, and y the same with and without the state."""
+    from repro_torch.kernels import ops
+    args = _ssd_args(*case, dtype, dev)
+    n0 = tcuda.launches["selective_scan"]
+    y, h = ops.ssd_with_state(*args)
+    y2 = ops.ssd(*args)
+    assert tcuda.launches["selective_scan"] == n0 + 2
+    torch.cuda.synchronize()
+    y_ref, h_ref = tref.ssd_with_state_ref(*args)
+    b, s, nh, hd, n = case
+    assert y.shape == (b, s, nh, hd) and y.dtype == dtype
+    assert h.shape == (b, nh, hd, n) and h.dtype == torch.float32
+    assert torch.equal(y, y2)
+    assert _rel(y, y_ref) <= (1e-5 if dtype == torch.float32 else 2e-2)
+    assert _rel(h, h_ref) <= 1e-4
+
+
+@pytest.mark.parametrize("npl,steps", [(4, 32), (4, 64), (8, 32), (8, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_every_plan_at_state_64(dev, monkeypatch, npl, steps, dtype):
+    """The plans the scan can take at N = 64 (4 or 8 states per thread,
+    32 or 64 steps per chunk), forced, through Mamba-2's mapping."""
+    b, s, nh, hd, n = 2, 70, 3, 32, 64
+    d = nh * hd
+    assert npl in tcuda.scan_npl_options(n)
+    monkeypatch.setattr(tcuda, "scan_plan", lambda *_: tcuda.ScanPlan(
+        npl, steps, (-(-d // 32), b), 32 * n // npl))
+    from repro_torch.kernels import ops
+    args = _ssd_args(b, s, nh, hd, n, dtype, dev)
+    y, h = ops.ssd_with_state(*args)
+    torch.cuda.synchronize()
+    y_ref, h_ref = tref.ssd_with_state_ref(*args)
+    assert _rel(y, y_ref) <= (1e-5 if dtype == torch.float32 else 2e-2)
+    assert _rel(h, h_ref) <= 1e-4
+
+
+def test_ssd_refuses_what_the_kernel_cannot_take(dev):
+    """A Mamba-2 prefill on CUDA tensors the kernel has no instantiation
+    for raises; it never drops to the plain version."""
+    from repro_torch.kernels import ops
+    args = _ssd_args(1, 8, 2, 32, 12, torch.float32, dev)
+    n0 = tcuda.launches["selective_scan"]
+    with pytest.raises(ValueError, match="d_state"):
+        ops.ssd_with_state(*args)
+    with pytest.raises(ValueError, match="d_state"):
+        ops.ssd(*args)
+    assert tcuda.launches["selective_scan"] == n0
+
+
+def test_hybrid_model_on_card_matches_plain_path(dev):
+    """The zamba2 smoke Model on the card (scan, flash and decode kernels)
+    against the same Model on the CPU (plain versions), f32: prefill
+    logits and every cache leaf with ragged rows, then decode steps."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+    cfg = get_smoke_config("zamba2-2.7b")
+    cpu = Model(cfg, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    gpu = Model(cfg, device=dev)
+    gparams = _to(params, dev)
+    g = torch.Generator().manual_seed(1)
+    lens = torch.tensor([24, 13, 2, 1], dtype=torch.int32)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 24), generator=g,
+                           dtype=torch.int32)
+    outs = []
+    tcuda.reset_launches()
+    for m, p in ((cpu, params), (gpu, gparams)):
+        batch = {"tokens": tokens.to(m.device), "lengths": lens.to(m.device)}
+        logits, cache = m.prefill(p, batch, m.init_cache(4, 40))
+        steps = [logits]
+        for nxt in ([5, 9, 77, 3], [1, 2, 3, 4]):
+            logits, cache = m.decode_step(
+                p, torch.tensor(nxt, dtype=torch.int32, device=m.device),
+                cache)
+            steps.append(logits)
+        outs.append((steps, cache))
+    n_rounds = cfg.num_layers // cfg.hybrid_attn_every
+    assert tcuda.launches["selective_scan"] == len(cfg.ssm_layer_ids())
+    assert tcuda.launches["flash_attention"] == n_rounds
+    assert tcuda.launches["decode_attention"] == 2 * n_rounds
+    for a, b in zip(outs[0][0], outs[1][0]):
+        torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=0)
+    for key in ("k", "v", "ssm_h", "ssm_conv"):
+        torch.testing.assert_close(outs[1][1][key].cpu(), outs[0][1][key],
+                                   atol=1e-4, rtol=0)
 
 
 def test_engine_on_card_matches_plain_path(dev):
