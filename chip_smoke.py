@@ -5,8 +5,9 @@
 
 Drives the port's three main paths — the Andes serving engine over the
 full-width, full-depth Llama-3-8B, Falcon-Mamba-7B and Zamba2-2.7B configs
-with random bf16 weights made from a seed — and holds every hand-written
-CUDA kernel on those paths against its plain PyTorch version. Phases, in
+with random bf16 weights made from a seed — and the HTTP/SSE server over
+the Llama-3-8B engine on the wall clock, and holds every hand-written CUDA
+kernel on those paths against its plain PyTorch version. Phases, in
 order:
 
 1. the device: name and power limit from nvidia-smi;
@@ -52,12 +53,32 @@ order:
    cache (k/v of the 9 shared-attention applications beside 45 Mamba-2
    states): per prefill group 45 scan and 9 flash launches (hd 80), per
    decode iteration 9 decode launches, no paged decode; the tight run
-   swaps whole hybrid slots out and back.
+   swaps whole hybrid slots out and back;
+8. the HTTP/SSE server (``repro_torch.server``) over a wall-clock engine
+   on phase 5's llama3-8b model and weights (8 slots, max_seq 1024,
+   paced by the TPU_V5E latency model): 8 concurrent streams (prompts
+   64-512 tokens, 32-64 out) that must be well formed, /healthz, and
+   /metrics counting every streamed token; a client that hangs up after 3
+   tokens, whose request must be cancelled and its slot freed; a drain
+   with 2 live streams, which must finish while a new stream gets 503;
+   the 8 requests again, at the arrivals the server stamped, through a
+   virtual-clock engine, tokens equal up to bf16 near-ties. It prints the
+   measured TTFT, TDS and QoE (on the engine's emit stamps, and at the
+   socket: each token when its frame was written) beside the modelled
+   ones, the tolerance report of the two, the share of wall ticks that
+   slept to the modelled schedule against those that drifted behind it,
+   the wall per decode iteration (under the server and in the direct
+   virtual run), the SSE flush delay and the kernel launches under the
+   server (launch counters set to 0 before the first stream, read after
+   the drain). Then ``python -m repro_torch.server`` runs as a subprocess
+   on the card: 2 streams, SIGTERM, and it must print "DRAINED done" and
+   exit 0.
 
 It prints the kernels' JSON line, the card line, and last the result
 line {"ok": true, "device": {...}}. With no CUDA device, or outside a
 checkout of the repo, it exits non-zero and prints no result. Every
-process it starts (nvcc, nvidia-smi) ends before it returns.
+process it starts (nvcc, nvidia-smi, the CLI server) ends before it
+returns.
 """
 from __future__ import annotations
 
@@ -745,7 +766,7 @@ def check_full_engine(torch):
     check_bf16_flips(model, params, a, b, "paged vs contiguous")
     check_logits(torch, model, params, a[0].prompt_tokens)
     profile_engine_steps(torch, model, params)
-    return launches
+    return launches, model, params
 
 
 # a capacity (tokens) under which the 12-request trace preempts: probed on
@@ -847,6 +868,410 @@ def check_zamba2_engine(torch):
     check_logits(torch, model, params, runs["zamba2 ample"][0].prompt_tokens)
     profile_engine_steps(torch, model, params)
     return total
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the HTTP/SSE server over the full-width llama3-8b engine
+# ---------------------------------------------------------------------------
+
+HOST = "127.0.0.1"
+SERVER_STREAMS = 8
+
+
+def _count_ticks(eng, counts):
+    """Wrap the engine's clock: each wall tick either sleeps off what the
+    host left of the modelled duration ("slept") or finds the host already
+    past the modelled deadline ("drifted"); count both, with the seconds
+    slept or drifted and the modelled seconds asked for."""
+    tick = eng._tick
+
+    def counted(seconds):
+        late = time.monotonic() - eng._wall0 - (eng.now + seconds)
+        kind = "drifted" if late >= 0 else "slept"
+        counts[kind] += 1
+        counts[kind + "_s"] += abs(late)
+        counts["modelled_s"] += seconds
+        tick(seconds)
+    eng._tick = counted
+
+
+def _mean_p95(xs):
+    import numpy as np
+    xs = np.asarray([x for x in xs if x is not None and np.isfinite(x)],
+                    np.float64)
+    if not xs.size:
+        return float("nan"), float("nan")
+    return float(xs.mean()), float(np.percentile(xs, 95))
+
+
+def _well_formed(evs, rid, n):
+    """accepted -> token* (indices 0..n-1) -> finish with n tokens."""
+    kinds = [k for k, _ in evs]
+    toks = [d for k, d in evs if k == "token"]
+    return (len(kinds) >= 2 and kinds[0] == "accepted"
+            and evs[0][1]["rid"] == rid and kinds[-1] == "finish"
+            and set(kinds[1:-1]) <= {"token"}
+            and [d["index"] for d in toks] == list(range(n))
+            and evs[-1][1]["n_tokens"] == n)
+
+
+def _flush_times(trace_events, payloads, results, step_ends):
+    """Per token: the engine-clock time its SSE frame was written to the
+    socket (the server's `sse_flush` events, each covering n frames of one
+    rid in order) minus the token's emit time, split at the end of the
+    pump's step that emitted it (frames leave only after the step); and
+    per rid, the times its token frames were written."""
+    import bisect
+    flushes = {}
+    for e in trace_events:
+        if e.kind == "sse_flush":
+            flushes.setdefault(e.rid, []).extend(
+                [e.t] * e.data["n_events"])
+    delays, in_step, after_step, first = [], [], [], {}
+    for p, evs in zip(payloads, results):
+        times = flushes.get(p["rid"], [])
+        if len(times) != len(evs):
+            fail(f"server: rid {p['rid']} flushed {len(times)} frames but "
+                 f"the client read {len(evs)}")
+        sent = [(t, d) for (k, d), t in zip(evs, times) if k == "token"]
+        for t, d in sent:
+            end = step_ends[min(bisect.bisect_left(step_ends, d["t"]),
+                                len(step_ends) - 1)]
+            delays.append(t - d["t"])
+            in_step.append(end - d["t"])
+            after_step.append(t - end)
+        first[p["rid"]] = [t for t, _ in sent]
+    return delays, in_step, after_step, first
+
+
+def check_server(torch, model, params):
+    """The port's HTTP/SSE server over a wall-clock engine on phase 5's
+    model and weights: 8 concurrent streams, a client that hangs up, a
+    drain under load, and the same requests through a virtual-clock engine
+    for comparison. Returns the kernel launches counted from the first
+    stream to the end of the drain."""
+    import asyncio
+    import dataclasses
+    import threading
+
+    import numpy as np
+    from repro_torch.core import (TPU_V5E, LatencyModel, SchedulerConfig,
+                                  make_scheduler)
+    from repro_torch.kernels import cuda as kc
+    from repro_torch.obs import parse_prometheus
+    from repro_torch.server import (ServerConfig, ServingServer, astream,
+                                    collect, fetch, stream)
+    from repro_torch.serving import Request, ServingEngine, compare_requests
+
+    cfg = model.cfg
+
+    def engine(clock):
+        lat = LatencyModel(cfg, TPU_V5E)
+        sched = make_scheduler("andes", 8 * 1024, lat,
+                               SchedulerConfig(delta_t=50.0))
+        return ServingEngine(model, params, sched, lat, num_slots=8,
+                             max_seq=1024, capacity_tokens=8 * 1024,
+                             cache_dtype=torch.bfloat16, clock=clock,
+                             device=model.device)
+
+    eng = engine("wall")
+    timers = {}
+    _instrument(eng, timers)
+    ticks = dict.fromkeys(("slept", "drifted", "slept_s", "drifted_s",
+                           "modelled_s"), 0)
+    _count_ticks(eng, ticks)
+    srv = ServingServer(ServerConfig(host=HOST, clock="wall",
+                                     drain_timeout=300.0),
+                        backend=eng, model_cfg=cfg)
+    step_ends = []                  # engine clock when each pump step ended
+    client_step = srv.client.step
+
+    def timed_step(*a, **k):
+        res = client_step(*a, **k)
+        step_ends.append(eng.wall_now())
+        return res
+    srv.client.step = timed_step
+    t = time.perf_counter()
+    port = srv.start()
+    print(f"  server on {HOST}:{port} (wall clock, TPU_V5E pacing), "
+          f"started with its warmup in {time.perf_counter() - t:.1f} s",
+          flush=True)
+
+    status, body = fetch(HOST, port, "/healthz")
+    health = json.loads(body) if status == 200 else {}
+    if not (health.get("ok") and health.get("clock") == "wall"):
+        fail(f"server: /healthz answered {status} {body!r}")
+
+    rng = np.random.default_rng(8)
+    payloads = []
+    for i in range(SERVER_STREAMS):
+        plen = int(rng.integers(64, 513))
+        payloads.append({
+            "prompt_tokens": rng.integers(0, cfg.vocab_size, plen).tolist(),
+            "max_tokens": int(rng.integers(32, 65)), "rid": 100 + i})
+
+    def emitted():
+        status, text = fetch(HOST, port, "/metrics")
+        if status != 200:
+            fail(f"server: /metrics answered {status}")
+        return parse_prometheus(text)[("tokens_emitted_total", ())]
+
+    emitted0 = emitted()
+    mark = len(srv.trace.events)
+    torch.cuda.synchronize()
+    kc.reset_launches()
+    timers.clear()
+    for k in ticks:
+        ticks[k] = 0
+
+    async def streams():
+        async def one(i, p):
+            await asyncio.sleep(0.05 * i)      # arrivals trickle in
+            return await astream(HOST, port, p)
+        return await asyncio.gather(*(one(i, p)
+                                      for i, p in enumerate(payloads)))
+
+    t = time.perf_counter()
+    results = asyncio.run(streams())
+    window_s = time.perf_counter() - t
+    tick_window = dict(ticks)
+    timer_window = {k: list(v) for k, v in timers.items()}
+    for p, evs in zip(payloads, results):
+        if not _well_formed(evs, p["rid"], p["max_tokens"]):
+            fail(f"server: stream {p['rid']} is not accepted -> "
+                 f"{p['max_tokens']} tokens -> finish: "
+                 f"{[k for k, _ in evs]}")
+    n_streamed = sum(p["max_tokens"] for p in payloads)
+    if emitted() - emitted0 != n_streamed:
+        fail(f"server: /metrics counts {emitted() - emitted0} emitted "
+             f"tokens, the streams carried {n_streamed}")
+    if fetch(HOST, port, "/healthz")[0] != 200:
+        fail("server: /healthz stopped answering")
+    print(f"  {SERVER_STREAMS} concurrent streams well formed, "
+          f"{n_streamed} tokens in {window_s:.2f} s; /healthz answers, "
+          "/metrics parses and counts every streamed token", flush=True)
+    delays, in_step, after_step, sent_times = _flush_times(
+        srv.trace.events[mark:], payloads, results, list(step_ends))
+    if min(delays) < 0:
+        fail(f"server: a token was flushed before it was emitted "
+             f"({min(delays)})")
+
+    # ---- a client that hangs up after 3 tokens -------------------------
+    slots0 = eng.kv.slots_in_use
+    got = [k for k, _ in stream(
+        HOST, port, {"prompt_tokens": payloads[0]["prompt_tokens"][:64],
+                     "max_tokens": 512, "rid": 200}, max_events=4)]
+    if got != ["accepted", "token", "token", "token"]:
+        fail(f"server: the hang-up stream read {got}")
+    deadline = time.monotonic() + 60
+    req = next(r for r in eng.seen if r.rid == 200)
+    while (not req.cancelled or eng.kv.slots_in_use != slots0) \
+            and time.monotonic() < deadline:
+        time.sleep(0.02)
+    if not req.cancelled or eng.kv.slots_in_use != slots0:
+        fail(f"server: hang-up not cancelled (cancelled={req.cancelled}, "
+             f"slots {eng.kv.slots_in_use} vs {slots0} before)")
+    print(f"  hang-up after 3 tokens: request cancelled with "
+          f"{req.generated} of 512 tokens, slots in use back to {slots0}",
+          flush=True)
+
+    # ---- drain while 2 streams are live --------------------------------
+    live = {}
+    started = threading.Barrier(3)
+
+    def client(i):
+        evs = []
+        for ev in stream(HOST, port, {
+                "prompt_tokens": payloads[i]["prompt_tokens"],
+                "max_tokens": 64, "rid": 300 + i}, timeout=300):
+            evs.append(ev)
+            if ev[0] == "accepted":
+                started.wait(timeout=120)
+        live[i] = evs
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(2)]
+    for th in threads:
+        th.start()
+    started.wait(timeout=120)
+    phase = {}
+    shut = threading.Thread(
+        target=lambda: phase.update(p=srv.shutdown(drain=True)))
+    shut.start()
+    while not srv._draining:
+        time.sleep(0.005)
+    refused = collect(HOST, port, {"prompt_len": 8, "max_tokens": 4})
+    shut.join(timeout=600)
+    for th in threads:
+        th.join(timeout=60)
+    if shut.is_alive() or any(th.is_alive() for th in threads):
+        fail("server: the drain did not end")
+    torch.cuda.synchronize()
+    launches = dict(kc.launches)
+    if not (refused and refused[0][0] == "http_error"
+            and refused[0][1]["status"] == 503):
+        fail(f"server: a stream opened during the drain got {refused}")
+    if phase.get("p") != "done":
+        fail(f"server: drain ended {phase.get('p')!r}")
+    for i in range(2):
+        if not _well_formed(live.get(i, []), 300 + i, 64):
+            fail(f"server: live stream {300 + i} did not finish through "
+                 "the drain")
+    print("  drain with 2 live streams: both finished (64 tokens each), a "
+          "new stream got 503, drain phase 'done'", flush=True)
+
+    # ---- the same requests through a virtual-clock engine --------------
+    served = sorted((r for r in eng.seen
+                     if 100 <= r.rid < 100 + SERVER_STREAMS),
+                    key=lambda r: r.rid)
+    for r, p, evs in zip(served, payloads, results):
+        if [d["token"] for k, d in evs if k == "token"] != \
+                [int(x) for x in r.output_tokens]:
+            fail(f"server: stream {r.rid} carried other tokens than the "
+                 "engine emitted")
+    trace = [Request(rid=r.rid, arrival=r.arrival, prompt_len=r.prompt_len,
+                     output_len=r.output_len, spec=r.spec,
+                     prompt_tokens=np.asarray(r.prompt_tokens, np.int32))
+             for r in served]
+    del eng.cache
+    veng = engine("virtual")
+    vtimers = {}
+    _instrument(veng, vtimers)
+    virtual = sorted(veng.run(trace, max_iterations=100_000),
+                     key=lambda r: r.rid)
+    check_bf16_flips(model, params, virtual, served,
+                     "server (wall) vs virtual engine")
+
+    # ---- report --------------------------------------------------------
+    # the same requests as the client's socket saw them: each token at
+    # the time its frame was written
+    at_socket = [dataclasses.replace(r, emit_times=sent_times[r.rid])
+                 for r in served]
+    for label, reqs in (
+            ("measured on the card (wall clock, emit stamps)", served),
+            ("measured at the socket (wall clock, frames written)",
+             at_socket),
+            ("modelled (virtual clock, TPU_V5E)", virtual)):
+        stats = [_mean_p95([getattr(r, f)() for r in reqs])
+                 for f in ("final_ttft", "final_tds", "final_qoe")]
+        print(f"  {label}: TTFT mean {stats[0][0]:.4f} s p95 "
+              f"{stats[0][1]:.4f} s; TDS mean {stats[1][0]:.3f} tok/s p95 "
+              f"{stats[1][1]:.3f}; QoE mean {stats[2][0]:.4f} p95 "
+              f"{stats[2][1]:.4f}", flush=True)
+    rep = compare_requests(virtual, served)
+    print("  " + rep.summary().replace("\n", "\n  "), flush=True)
+    n_ticks = tick_window["slept"] + tick_window["drifted"]
+    print(f"  wall ticks in the {SERVER_STREAMS}-stream window: {n_ticks}; "
+          f"slept {tick_window['slept']} "
+          f"({tick_window['slept'] / max(n_ticks, 1):.3f}, "
+          f"{tick_window['slept_s']:.3f} s in all), drifted "
+          f"{tick_window['drifted']} "
+          f"({tick_window['drifted'] / max(n_ticks, 1):.3f}, "
+          f"{tick_window['drifted_s']:.3f} s late in all); modelled "
+          f"{tick_window['modelled_s'] * 1e3 / max(n_ticks, 1):.2f} ms per "
+          "tick", flush=True)
+    for label, tm in (("under the server", timer_window),
+                      ("direct virtual run of the same requests", vtimers)):
+        dec, pre = tm.get("decode", []), tm.get("prefill", [])
+        steps = sum(n for _, n in dec)
+        print(f"  {label}: wall per decode iteration "
+              f"{sum(ms for ms, _ in dec) / max(steps, 1):.2f} ms "
+              f"({len(dec)} blocks, {steps} iterations); per prefill group "
+              f"{sum(ms for ms, _ in pre) / max(len(pre), 1):.2f} ms "
+              f"({len(pre)} groups: "
+              + ", ".join(f"{r}x{s}" for _, (r, s) in pre)
+              + ") (card-measured, synchronized)", flush=True)
+    print(f"  SSE flush delay (frame written - token emitted, engine "
+          f"clock) over {len(delays)} tokens: "
+          + "; ".join(f"{name} mean {m * 1e3:.2f} ms, p95 {q * 1e3:.2f} ms, "
+                      f"max {max(xs) * 1e3:.2f} ms"
+                      for name, xs in (("total", delays),
+                                       ("until the pump's step ended",
+                                        in_step),
+                                       ("step end to socket write",
+                                        after_step))
+                      for m, q in [_mean_p95(xs)]), flush=True)
+    print(f"  launches in the phase (streams, hang-up, drain): {launches}",
+          flush=True)
+    for k in ("flash_attention", "decode_attention"):
+        if launches[k] <= 0:
+            fail(f"kernel {k} was never launched under the server")
+    return launches
+
+
+def check_server_cli():
+    """`python -m repro_torch.server` as a subprocess (the smoke config on
+    its default device, the card): 2 streams, then SIGTERM must drain it
+    and end it with code 0."""
+    import asyncio
+    import os
+    import queue
+    import signal
+    import threading
+
+    from repro_torch.server import astream
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.server", "--host", HOST],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    lines: "queue.Queue" = queue.Queue()
+    out = []
+
+    def reader():
+        for line in proc.stdout:
+            lines.put(line)
+        lines.put(None)
+
+    threading.Thread(target=reader, daemon=True).start()
+
+    def next_line(deadline):
+        try:
+            line = lines.get(timeout=max(deadline - time.monotonic(), 0.1))
+        except queue.Empty:
+            return None
+        if line is not None:
+            out.append(line)
+        return line
+
+    try:
+        t = time.perf_counter()
+        deadline = time.monotonic() + 300
+        line = ""
+        while line is not None and not line.startswith("LISTENING "):
+            line = next_line(deadline)
+        if line is None:
+            fail("python -m repro_torch.server never listened:\n"
+                 + "".join(out[-30:]))
+        port = int(line.split()[1])
+        print(f"  python -m repro_torch.server: LISTENING {port} after "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+
+        async def two():
+            return await asyncio.gather(*(
+                astream(HOST, port, {"prompt_len": 16 + 8 * i,
+                                     "max_tokens": 12, "rid": 10 + i})
+                for i in range(2)))
+
+        for i, evs in enumerate(asyncio.run(two())):
+            if not _well_formed(evs, 10 + i, 12):
+                fail(f"CLI server stream {10 + i}: {[k for k, _ in evs]}")
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=120)
+        while next_line(time.monotonic() + 10) is not None:
+            pass
+        if proc.returncode != 0 or not any(
+                ln.strip() == "DRAINED done" for ln in out):
+            fail(f"CLI server exited {proc.returncode}:\n"
+                 + "".join(out[-30:]))
+        print(f"  2 streams well formed; SIGTERM -> DRAINED done, exit "
+              f"{proc.returncode}", flush=True)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 def profile_window(torch, label, fn, steps):
@@ -973,7 +1398,7 @@ def main() -> None:
     check_small_engine(torch)
 
     print("[5] full-width llama3-8b engine (bf16):", flush=True)
-    launches = check_full_engine(torch)
+    launches, llama, llama_params = check_full_engine(torch)
     torch.cuda.empty_cache()
 
     print("[6] full-width falcon-mamba-7b engine (bf16):", flush=True)
@@ -983,6 +1408,15 @@ def main() -> None:
     print("[7] full-width zamba2-2.7b engine (bf16):", flush=True)
     for k, n in check_zamba2_engine(torch).items():
         launches[k] += n
+    torch.cuda.empty_cache()
+
+    print("[8] the HTTP/SSE server over the full-width llama3-8b engine "
+          f"(bf16, wall clock; {card}):", flush=True)
+    for k, n in check_server(torch, llama, llama_params).items():
+        launches[k] += n
+    del llama, llama_params
+    torch.cuda.empty_cache()
+    check_server_cli()
 
     kernels = []
     for name, (src, rep) in SOURCES.items():

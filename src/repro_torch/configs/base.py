@@ -224,6 +224,10 @@ ARCH_IDS = (
     "llama3-8b",
     "falcon-mamba-7b",
     "zamba2-2.7b",
+    "qwen1.5-4b",
+    "granite-3-2b",
+    "opt-66b",
+    "llama3-405b",
 )
 
 _MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}

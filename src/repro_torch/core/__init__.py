@@ -30,6 +30,21 @@ from repro_torch.core.qoe import (
     predict_request_qoe,
     qoe_exact,
 )
+from repro_torch.core.scoring import (
+    fairness_report,
+    jains_index,
+    max_min_service,
+    per_tenant_service,
+    slo_goodput,
+)
+from repro_torch.core.network import (
+    NETWORK_SCENARIOS,
+    JitterLossLink,
+    NetworkModel,
+    make_network,
+    qoe_under_network,
+)
+from repro_torch.core.token_buffer import TokenBuffer
 from repro_torch.core.policies import (
     SCHEDULERS,
     AndesDPScheduler,
@@ -57,4 +72,9 @@ __all__ = [
     "SCHEDULERS", "make_scheduler",
     "QoEPricer", "SLOContract", "placement_gain", "request_weight",
     "shared_token_rate", "slo_attained", "weighted_attainment",
+    "jains_index", "slo_goodput", "per_tenant_service", "max_min_service",
+    "fairness_report",
+    "TokenBuffer",
+    "NetworkModel", "JitterLossLink", "NETWORK_SCENARIOS", "make_network",
+    "qoe_under_network",
 ]

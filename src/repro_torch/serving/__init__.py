@@ -8,10 +8,13 @@ from repro_torch.serving.lossless import (FLIP_TOL, all_flips_documented,
                                           first_divergence,
                                           timing_fingerprint)
 from repro_torch.serving.simulator import SimResult
+from repro_torch.serving.tolerance import (Tolerance, ToleranceReport,
+                                           ToleranceSpec, compare_requests)
 
 __all__ = [
     "Request", "ReqState", "KVSlotManager", "ServingEngine",
     "HotpathConfig", "BucketedPrefill", "SimResult",
     "FLIP_TOL", "fingerprint", "timing_fingerprint", "first_divergence",
     "exact_margin", "classify_flip", "audit_flips", "all_flips_documented",
+    "Tolerance", "ToleranceSpec", "ToleranceReport", "compare_requests",
 ]

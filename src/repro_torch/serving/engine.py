@@ -18,9 +18,16 @@ What differs from the reference, and why:
 * Caches are updated in place; JAX's out-of-range rules are spelled out
   where the reference leans on them (dropped scatters for the sentinel
   slot / page, clamped gathers and writes — models/cache.py).
-* Speculative decoding (``spec_k > 0``) is not ported yet and raises;
-  the observer hook call sites stay (``set_observer``), composition of
-  several observers comes with the server slice.
+* Speculative decoding (``spec_k > 0``) is not ported yet and raises.
+
+Observers (``repro_torch.obs``) attach as in the reference: ``observer``
+/ ``set_observer`` install one, ``attach_observer`` composes another
+beside it, and the legacy ``event_sink`` callable is wrapped in an
+``EventSinkAdapter``; ``_rewire_obs`` keeps the engine, the scheduler and
+the prefill compile hook on one composed stream. ``cancel(rid)`` aborts a
+pending, running or swapped request (a server's client disconnect), and
+``wall_now()`` reads the engine's clock for arrivals stamped from
+outside.
 
 On a CUDA device the model's attention runs on the hand-written kernels
 (kernels/csrc); on the CPU on their plain versions.
@@ -42,6 +49,7 @@ from repro_torch.core.scheduler import Scheduler
 from repro_torch.device import resolve_device
 from repro_torch.models import cache as cache_lib
 from repro_torch.models.model import Model
+from repro_torch.obs.observer import EventSinkAdapter, compose
 from repro_torch.serving.kv_manager import KVSlotManager
 from repro_torch.serving.simulator import SimResult
 
@@ -291,6 +299,7 @@ class ServingEngine:
         self.eos_id = eos_id
         self.hotpath = hotpath if hotpath is not None else HotpathConfig()
         self._observer = None
+        self._event_sink = None
         self.obs = None
         self.max_seq = max_seq
         self._num_slots = num_slots
@@ -394,19 +403,43 @@ class ServingEngine:
     # ------------------------------------------------------------ observers
     @property
     def observer(self):
+        """Installed Observer (repro_torch.obs); None = observability off."""
         return self._observer
 
     @observer.setter
     def observer(self, obs) -> None:
         self._observer = obs
-        self.obs = obs
-        self.sched.obs = obs
-        self._prefill.on_compile = (
-            (lambda key: obs.jit_compile(self.now, key))
-            if obs is not None else None)
+        self._rewire_obs()
+
+    @property
+    def event_sink(self):
+        """Legacy lifecycle callable `sink(kind, req, t, k)` (deprecated;
+        kept as an EventSinkAdapter shim — prefer `observer`)."""
+        return self._event_sink
+
+    @event_sink.setter
+    def event_sink(self, sink) -> None:
+        self._event_sink = sink
+        self._rewire_obs()
 
     def set_observer(self, obs) -> None:
         self.observer = obs
+
+    def attach_observer(self, obs) -> None:
+        """Add `obs` alongside any already-installed observer."""
+        self.observer = compose(self._observer, obs)
+
+    def _rewire_obs(self) -> None:
+        """Point the engine, the scheduler and the prefill compile hook at
+        one stream: the installed observer composed with the legacy sink."""
+        sink_obs = (EventSinkAdapter(self._event_sink)
+                    if self._event_sink is not None else None)
+        self.obs = compose(self._observer, sink_obs)
+        self.sched.obs = self.obs
+        obs = self.obs
+        self._prefill.on_compile = (
+            (lambda key: obs.jit_compile(self.now, key))
+            if obs is not None else None)
 
     def _sync(self, n: int = 1) -> None:
         if n:
@@ -475,6 +508,54 @@ class ServingEngine:
             self.obs.submit(req, req.arrival)
         self.stuck = False
 
+    def cancel(self, rid: int) -> bool:
+        """Abort a request by rid (client disconnect / explicit cancel).
+
+        The request is finalized at once with whatever it has emitted:
+        marked ``cancelled`` + FINISHED, its KV slot (or its parked host
+        slices, for a swapped request; the device cache is not touched)
+        freed, and the scheduler notified, so the next step()'s knapsack
+        prices the freed memory. Returns False if the rid is unknown or
+        already finished (a cancel racing normal completion is a no-op)."""
+        t = self.wall_now()
+        for i in range(self._pending_pos, len(self._pending)):
+            r = self._pending[i]
+            if r.rid == rid:
+                # never admitted: no fluid slot, scheduler never saw it
+                del self._pending[i]
+                r.cancelled = True
+                r.state = ReqState.FINISHED
+                r.finish_time = t
+                if self.obs is not None:
+                    self.obs.cancel(r, t)
+                return True
+        for r in self.live:
+            if r.rid == rid:
+                if r.state == ReqState.RUNNING:
+                    slot = r.engine_slot
+                    self.kv.release(r)
+                    self.slot_req.pop(slot, None)
+                elif r.state == ReqState.SWAPPED:
+                    self.kv.host_store.pop(r.rid, None)
+                    self.kv.draft_store.pop(r.rid, None)
+                r.cancelled = True
+                r.state = ReqState.FINISHED
+                r.finish_time = t
+                r.prefill_cursor = 0
+                self.sched.on_request_finish(r)
+                self.live = [x for x in self.live if x is not r]
+                self.stuck = False   # freed memory may unblock the rest
+                if self.obs is not None:
+                    self.obs.cancel(r, t)
+                return True
+        return False
+
+    @property
+    def pending(self) -> List[Request]:
+        """Submitted-but-not-admitted requests (protocol view; the hot loop
+        uses the cursor directly)."""
+        return self._pending[self._pending_pos:]
+
     @property
     def has_work(self) -> bool:
         return self._pending_pos < len(self._pending) or bool(self.live)
@@ -509,6 +590,14 @@ class ServingEngine:
                 time.sleep(deadline - w)
                 w = time.monotonic() - self._wall0
             self.now = w
+
+    def wall_now(self) -> float:
+        """Current time on this engine's clock for *external* events
+        (arrival stamping by a live frontend): a fresh monotonic reading
+        in wall mode, `self.now` in virtual mode."""
+        if self.clock == "virtual":
+            return self.now
+        return time.monotonic() - self._wall0
 
     # -------------------------------------------------------------- prefill
     def _prompt_tokens(self, r: Request) -> np.ndarray:

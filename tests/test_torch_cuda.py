@@ -14,8 +14,9 @@ convention — while the plain versions average uniformly; those rows are
 checked for zeros and left out of the comparison. The decode kernels'
 split-KV edges (lengths at a split boundary and either side of it, a
 window that empties whole splits, the in-kernel merge's counters over two
-calls in a row) and the tensor-core flash body (bf16; f32 runs the
-CUDA-core body) are covered case by case, hd 80 included. Mamba-2 runs on
+calls in a row, a launch from another thread, as the server's engine
+makes) and the tensor-core flash body (bf16; f32 runs the CUDA-core body)
+are covered case by case, hd 80 included. Mamba-2 runs on
 the scan kernel through ``ops.ssd_scan_args`` and is held against the plain
 Mamba-2 recurrence at the scan's tolerances, N 64 and D 5120 included.
 """
@@ -193,6 +194,41 @@ def test_decode_one_row_full_depth(dev):
         lengths = torch.tensor([n], dtype=torch.int32, device=dev)
         _close(tcuda.decode_attention(q, k, v, lengths),
                tref.decode_attention_ref(q, k, v, lengths), torch.bfloat16)
+
+
+def test_decode_from_another_thread(dev):
+    """The server's engine decodes in its pump thread, not the thread that
+    built and first launched the kernels: a launch there on the default
+    stream shares that stream's split-KV scratch (keyed by device and
+    stream, not by thread) and computes bitwise what the main thread
+    computes; a side stream gets a scratch of its own."""
+    import threading
+    q = _rand(40, (8, 32, 128), torch.bfloat16, dev)
+    k = _rand(41, (8, 1024, 8, 128), torch.bfloat16, dev)
+    v = _rand(42, (8, 1024, 8, 128), torch.bfloat16, dev)
+    lengths = torch.tensor([1024, 700, 5, 64, 1, 333, 512, 900],
+                           dtype=torch.int32, device=dev)
+    main = tcuda.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    keys = set(tcuda._scratch)
+    out = {}
+
+    def run():
+        out["default"] = tcuda.decode_attention(q, k, v, lengths)
+        side = torch.cuda.Stream()
+        with torch.cuda.stream(side):
+            out["side"] = tcuda.decode_attention(q, k, v, lengths)
+        side.synchronize()
+        out["side_key"] = (q.device.index, side.cuda_stream)
+
+    th = threading.Thread(target=run)
+    th.start()
+    th.join(timeout=120)
+    assert not th.is_alive()
+    torch.cuda.synchronize()
+    assert torch.equal(out["default"], main)
+    assert torch.equal(out["side"], main)
+    assert set(tcuda._scratch) - keys == {out["side_key"]}
 
 
 def test_paged_kernel_window_and_main_shape(dev):

@@ -15,7 +15,13 @@ With EOS off the virtual clock depends only on lengths and batch
 composition, so ``timing_fingerprint`` must be identical. Token ids must
 be identical except for flips that the reference's ``audit_flips`` (the
 JAX model as referee) classifies as documented near-ties.
+
+With EOS on (``eos_id`` set to the trace's most common early token)
+requests finish early, and the timing then depends on the tokens, so
+tokens and emit times must be identical per request.
 """
+import collections
+
 import jax
 import numpy as np
 import pytest
@@ -44,6 +50,9 @@ from repro_torch.serving import (HotpathConfig, Request, ServingEngine,
 torch.set_num_threads(1)
 CAP = 100           # KV capacity (tokens): tight enough to preempt
 DELTA_T = 2.0       # Andes look-ahead (s)
+KW_EOS = [dict(preemption_mode="swap"),
+          dict(preemption_mode="recompute", page_size=16)]
+IDS_EOS = ["swap", "recompute-paged16"]
 
 
 @pytest.fixture(scope="module")
@@ -116,6 +125,39 @@ def test_engine_matches_reference(models, kw, hot):
     if teng.physical_pages:
         assert teng.page_scatters > 0
         assert teng.kv.pages_used == 0          # the pool drains
+    stats, jstats = teng.hotpath_stats(), jeng.hotpath_stats()
+    for key in ("host_syncs", "multi_step_blocks", "persistent_blocks",
+                "prefill_shapes", "page_gathers", "page_scatters"):
+        assert stats[key] == jstats[key], key
+
+
+def _early_token(outs):
+    """The most common token among the first four each request emits
+    (ties to the smallest id)."""
+    counts = collections.Counter(t for r in outs for t in r.output_tokens[:4])
+    return max(sorted(counts), key=counts.get)
+
+
+@pytest.mark.parametrize("kw", KW_EOS, ids=IDS_EOS)
+def test_engine_with_eos_matches_reference(models, kw):
+    """EOS on: `eos_id` set to the trace's most common early token, so
+    requests finish early (the engine's early-finish paths and, where the
+    cache cannot roll back, the gate that keeps multi-step decode off).
+    Tokens and emit times must be identical per request."""
+    cfg, jm, jp, tm, tp = models
+    off, _ = _run_torch(tm, tp, kw, None)
+    eos = _early_token(off)
+    kw = dict(kw, eos_id=eos)
+    jout, jeng = _run_jax(jm, jp, cfg, kw, None)
+    tout, teng = _run_torch(tm, tp, kw, None)
+    assert any(r.generated < r.output_len for r in tout), \
+        "the EOS token must end some request early"
+    for a, b in zip(tout, jout):
+        assert a.rid == b.rid
+        assert a.output_tokens == [int(t) for t in b.output_tokens], a.rid
+        assert a.emit_times == b.emit_times, a.rid
+        assert a.generated == a.output_len or a.output_tokens[-1] == eos
+    assert teng.preemptions == jeng.preemptions
     stats, jstats = teng.hotpath_stats(), jeng.hotpath_stats()
     for key in ("host_syncs", "multi_step_blocks", "persistent_blocks",
                 "prefill_shapes", "page_gathers", "page_scatters"):
