@@ -5,8 +5,9 @@
 
 Drives the port's three main paths — the Andes serving engine over the
 full-width, full-depth Llama-3-8B, Falcon-Mamba-7B and Zamba2-2.7B configs
-with random bf16 weights made from a seed — and the HTTP/SSE server over
-the Llama-3-8B engine on the wall clock, and holds every hand-written CUDA
+with random bf16 weights made from a seed — the HTTP/SSE server over the
+Llama-3-8B engine on the wall clock, and the cluster layer over
+engine-backed Llama-3-8B replicas, and holds every hand-written CUDA
 kernel on those paths against its plain PyTorch version. Phases, in
 order:
 
@@ -72,7 +73,24 @@ order:
    server (launch counters set to 0 before the first stream, read after
    the drain). Then ``python -m repro_torch.server`` runs as a subprocess
    on the card: 2 streams, SIGTERM, and it must print "DRAINED done" and
-   exit 0.
+   exit 0;
+9. the cluster layer (``repro_torch.cluster``) over ``engine_backend``
+   replicas that share phase 5's llama3-8b model and bf16 weights (Andes,
+   TPU_V5E virtual clock, contiguous caches), each replica's launches
+   counted on its own: (9a) phase 5's trace through a 1-replica cluster
+   (8 slots, max_seq 1024) must give the bare engine's timing fingerprint
+   and tokens exactly; (9b) a 2-replica round-robin engine fleet against
+   a 2-replica simulator fleet, per replica the same rids, generated
+   counts, TTFT within max(0.05 s, 20%) and QoE within 0.1; (9c) a
+   ShareGPT surge from ``repro_torch.workload`` (24 requests at 3 req/s,
+   about twice the fleet's modelled capacity) through the QoE router with
+   admission that sheds (8 slots, max_seq 2048, 16384 tokens per
+   replica): every admitted request must finish, shed + admitted = 24.
+   In every run a replica's flash launches must be 32 per prefill group
+   and its decode launches 32 per decode iteration. It prints the
+   admitted, shed and defer counts, preemptions, the fleet QoE and TTFT
+   modelled by TPU_V5E, and the card's wall per decode iteration and per
+   prefill group per replica.
 
 It prints the kernels' JSON line, the card line, and last the result
 line {"ok": true, "device": {...}}. With no CUDA device, or outside a
@@ -1274,6 +1292,206 @@ def check_server_cli():
             proc.wait()
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the cluster layer over engine-backed llama3-8b replicas
+# ---------------------------------------------------------------------------
+
+SURGE_REQUESTS = 24
+SURGE_RATE = 3.0           # req/s: about twice two replicas' modelled rate
+
+
+def _count_replica_launches(rep, counts):
+    """Wrap the replica's backend step: the launch counters' growth during
+    each of its steps is this replica's (the cluster steps one replica at
+    a time on the host)."""
+    from repro_torch.kernels import cuda as kc
+    step = rep.backend.step
+
+    def counted(*a, **k):
+        before = dict(kc.launches)
+        res = step(*a, **k)
+        for name, n in kc.launches.items():
+            counts[name] = counts.get(name, 0) + n - before[name]
+        return res
+    rep.backend.step = counted
+
+
+def run_fleet(torch, lat, ccfg, trace):
+    """One ClusterSimulator run over fresh clones of `trace`, every engine
+    replica instrumented (synchronized device timers and its own launch
+    counts), with the launch counters set to 0 just before the run and
+    read just after. Returns (result, {replica: (timers, launches)},
+    launches, wall seconds)."""
+    from repro_torch.cluster import ClusterSimulator, SteppableBackend
+    from repro_torch.kernels import cuda as kc
+    from repro_torch.serving import ServingEngine
+    cs = ClusterSimulator(lat, ccfg)
+    per = {}
+    for rep in cs.replicas:
+        if not isinstance(rep.backend, SteppableBackend):
+            fail(f"replica {rep.id}: {type(rep.backend).__name__} is not a "
+                 "SteppableBackend")
+        if isinstance(rep.backend, ServingEngine):
+            per[rep.id] = ({}, {})
+            _instrument(rep.backend, per[rep.id][0])
+            _count_replica_launches(rep, per[rep.id][1])
+    torch.cuda.synchronize()
+    kc.reset_launches()
+    t = time.perf_counter()
+    res = cs.run([r.clone() for r in trace])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return res, per, dict(kc.launches), wall
+
+
+def check_replica_launches(label, per, n_layers):
+    """Per engine replica: flash launches = layers x prefill groups and
+    decode launches = layers x decode iterations, nothing else; print the
+    replica's card-measured wall per decode iteration and prefill group."""
+    for rid, (timers, counts) in sorted(per.items()):
+        pre, dec = timers.get("prefill", []), timers.get("decode", [])
+        iters = sum(n for _, n in dec)
+        per_group = sum(ms for ms, _ in pre) / max(len(pre), 1)
+        flash = counts.get("flash_attention", 0)
+        decode = counts.get("decode_attention", 0)
+        other = {k: n for k, n in counts.items()
+                 if n and k not in ("flash_attention", "decode_attention")}
+        print(f"  {label} replica {rid}: {len(pre)} prefill groups, "
+              f"{iters} decode iterations ({len(dec)} blocks); launches "
+              f"flash {flash}, decode {decode}; wall per decode iteration "
+              f"{sum(ms for ms, _ in dec) / max(iters, 1):.2f} ms, per "
+              f"prefill group {per_group:.2f} ms (card-measured, "
+              "synchronized)", flush=True)
+        if flash != n_layers * len(pre) or decode != n_layers * iters:
+            fail(f"{label} replica {rid}: flash {flash} for {len(pre)} "
+                 f"groups, decode {decode} for {iters} iterations "
+                 f"({n_layers} layers)")
+        if other:
+            fail(f"{label} replica {rid}: unexpected launches {other}")
+
+
+def check_cluster(torch, model, params):
+    """Phase 9: the port's cluster layer over engine-backed replicas that
+    share phase 5's full-width model and bf16 weights (TPU_V5E virtual
+    clock, Andes). 9a: 1 replica against the bare engine; 9b: a 2-replica
+    engine fleet against a 2-replica simulator fleet, per replica; 9c: a
+    ShareGPT surge through the QoE router with shedding. Returns the
+    kernel launches of its runs."""
+    import numpy as np
+    from repro_torch.cluster import (AdmissionConfig, ClusterConfig,
+                                     engine_backend)
+    from repro_torch.core import TPU_V5E, LatencyModel, SchedulerConfig
+    from repro_torch.serving import timing_fingerprint
+    from repro_torch.workload import make_workload
+
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    layers = cfg.num_layers
+    lat = LatencyModel(cfg, TPU_V5E)
+    launches = dict.fromkeys(ATTENTION_KERNELS, 0)
+
+    def add(n):
+        for k in launches:
+            launches[k] += n.get(k, 0)
+
+    # ---- 9a: one engine replica against the bare engine ----------------
+    trace = make_trace(12, cfg.vocab_size, 0, (64, 513), (32, 65), 0.05)
+    cap = 8 * 1024
+    bare, _, n, _ = timed_run(torch, model, params, trace, "9a bare",
+                              num_slots=8, max_seq=1024,
+                              cache_dtype=torch.bfloat16, capacity=cap)
+    add(n)
+    fleet = dict(scheduler="andes", kv_capacity_tokens=cap,
+                 sched_cfg=SchedulerConfig(delta_t=50.0),
+                 backend_factory=engine_backend(
+                     model, params, num_slots=8, max_seq=1024,
+                     capacity_tokens=cap, cache_dtype=torch.bfloat16,
+                     device=model.device))
+    res, per, n, wall = run_fleet(torch, lat, ClusterConfig(
+        n_replicas=1, router="round_robin", **fleet), trace)
+    add(n)
+    routed = sorted(res.admitted, key=lambda r: r.rid)
+    same_t = timing_fingerprint(routed) == timing_fingerprint(bare)
+    same_tok = [r.output_tokens for r in routed] == \
+        [r.output_tokens for r in bare]
+    print(f"  9a 1-replica cluster vs bare engine: timing identical "
+          f"{same_t}, tokens identical {same_tok}, wall {wall:.2f} s",
+          flush=True)
+    if not same_t or not same_tok or res.shed:
+        fail("9a: the 1-replica engine cluster differs from the bare "
+             "engine")
+    check_replica_launches("9a", per, layers)
+
+    # ---- 9b: engine fleet against simulator fleet, per replica ---------
+    two = dict(n_replicas=2, router="round_robin")
+    res_e, per, n, wall = run_fleet(torch, lat, ClusterConfig(**two, **fleet),
+                                    trace)
+    add(n)
+    sim_fleet = {k: v for k, v in fleet.items() if k != "backend_factory"}
+    res_s, _, _, _ = run_fleet(torch, lat, ClusterConfig(**two, **sim_fleet),
+                               trace)
+    if res_e.replica_results.keys() != res_s.replica_results.keys():
+        fail("9b: the engine and simulator fleets differ in replicas")
+    worst = [0.0, 0.0]
+    for rid in sorted(res_s.replica_results):
+        per_s = res_s.replica_results[rid].requests
+        per_e = res_e.replica_results[rid].requests
+        if not per_s or [r.rid for r in per_s] != [r.rid for r in per_e]:
+            fail(f"9b replica {rid}: placement differs or is empty")
+        for re_, rs in zip(per_e, per_s):
+            te, ts = re_.final_ttft(), rs.final_ttft()
+            qe, qs = re_.final_qoe(), rs.final_qoe()
+            worst = [max(worst[0], abs(te - ts)), max(worst[1], abs(qe - qs))]
+            if re_.generated != rs.generated \
+                    or abs(te - ts) >= max(0.05, 0.2 * ts) \
+                    or abs(qe - qs) >= 0.1:
+                fail(f"9b replica {rid} rid {re_.rid}: engine "
+                     f"({re_.generated}, {te}, {qe}) vs simulator "
+                     f"({rs.generated}, {ts}, {qs})")
+    sizes = [len(r.requests) for r in res_e.replica_results.values()]
+    print(f"  9b 2-replica engine fleet vs simulator fleet (round robin): "
+          f"per replica {sizes} requests, same placement and generated "
+          f"counts; max |TTFT "
+          f"diff| {worst[0]:.4f} s, max |QoE diff| {worst[1]:.4f} (modelled "
+          f"by TPU_V5E); engine fleet wall {wall:.2f} s", flush=True)
+    check_replica_launches("9b", per, layers)
+
+    # ---- 9c: a ShareGPT surge, QoE router, admission that sheds --------
+    surge = make_workload(SURGE_REQUESTS, rate=SURGE_RATE, seed=0,
+                          dataset="sharegpt")
+    cap = 16384
+    res, per, n, wall = run_fleet(torch, lat, ClusterConfig(
+        n_replicas=2, router="qoe", scheduler="andes",
+        kv_capacity_tokens=cap, admission=AdmissionConfig(policy="shed"),
+        backend_factory=engine_backend(
+            model, params, num_slots=8, max_seq=2048, capacity_tokens=cap,
+            cache_dtype=torch.bfloat16, device=model.device)), surge)
+    add(n)
+    short = [r.rid for r in res.admitted if r.generated != r.output_len]
+    if short or len(res.admitted) + len(res.shed) != SURGE_REQUESTS:
+        fail(f"9c: unfinished {short}, admitted {len(res.admitted)} + shed "
+             f"{len(res.shed)} != {SURGE_REQUESTS}")
+    ttfts = res.ttfts()
+    print(f"  9c surge ({SURGE_REQUESTS} ShareGPT requests at "
+          f"{SURGE_RATE} req/s, 2 replicas, qoe router, shed): admitted "
+          f"{len(res.admitted)}, shed {len(res.shed)}, defer events "
+          f"{res.n_defer_events}, preemptions {res.preemptions()}, per "
+          f"replica {[len(r.requests) for r in res.replica_results.values()]}"
+          f" requests, {sum(r.output_len for r in res.admitted)} tokens",
+          flush=True)
+    print(f"  9c modelled by TPU_V5E (virtual clock, not measured): fleet "
+          f"avg QoE {res.avg_qoe():.4f} (shed as 0; admitted only "
+          f"{res.avg_qoe(include_shed=False):.4f}), TTFT mean "
+          f"{float(np.mean(ttfts)):.4f} s p95 "
+          f"{float(np.percentile(ttfts, 95)):.4f} s, makespan "
+          f"{res.makespan:.3f} s", flush=True)
+    check_replica_launches("9c", per, layers)
+    print(f"  9c wall {wall:.2f} s; phase 9 wall "
+          f"{time.perf_counter() - t_phase:.2f} s; launches {launches}",
+          flush=True)
+    return launches
+
+
 def profile_window(torch, label, fn, steps):
     """Trace fn() with torch.profiler: card-busy time (sum of kernel
     device time) against the synchronized host wall time of the window,
@@ -1413,6 +1631,12 @@ def main() -> None:
     print("[8] the HTTP/SSE server over the full-width llama3-8b engine "
           f"(bf16, wall clock; {card}):", flush=True)
     for k, n in check_server(torch, llama, llama_params).items():
+        launches[k] += n
+    torch.cuda.empty_cache()
+
+    print("[9] the cluster layer over engine-backed full-width llama3-8b "
+          f"replicas (bf16, virtual clock; {card}):", flush=True)
+    for k, n in check_cluster(torch, llama, llama_params).items():
         launches[k] += n
     del llama, llama_params
     torch.cuda.empty_cache()

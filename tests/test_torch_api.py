@@ -9,6 +9,14 @@ preemptions, QoE and tokens of driving the same engine directly, and
 the client's timing fingerprint equals the reference client's over the
 reference engine (bridged weights, one LatencyModel, virtual clock).
 
+The same holds over the port's discrete-event simulator and over a port
+``ClusterSimulator`` (1 replica, and 2 replicas with admission that
+sheds): the client's streams equal driving the backend directly bit for
+bit, and equal the reference client's over the reference backend on the
+same workload (``repro_torch.workload`` gives it bitwise). A shed stream
+ends empty with QoE 0, and pulling streams lazily one token at a time
+gives the timeline of draining wholesale.
+
 ``ServingEngine.cancel`` is held against the reference engine's: both
 engines step in lockstep over the trace until the chosen request is
 pending, running or swapped out to host memory, it is cancelled on both,
@@ -23,6 +31,11 @@ import pytest
 import torch
 
 from repro.api import ServingClient as JClient
+from repro.cluster import AdmissionConfig as JAdmission
+from repro.cluster import ClusterConfig as JClusterConfig
+from repro.cluster import ClusterSimulator as JCluster
+from repro.configs import get_config as j_get_config
+from repro.core import A100_4X as J_A100_4X
 from repro.configs import get_smoke_config as j_smoke
 from repro.core import LatencyModel as JLat
 from repro.core import QoESpec as JSpec
@@ -34,15 +47,22 @@ from repro.serving import ReqState as JReqState
 from repro.serving import Request as JRequest
 from repro.serving import ServingEngine as JEngine
 from repro.serving import timing_fingerprint as j_timing
+from repro.serving.simulator import ServingSimulator as JSim
+from repro.serving.simulator import SimConfig as JSimConfig
+import repro.workload as jw
 from repro_torch.api import ServingClient, SubmitOptions
 from repro_torch.bridge import from_numpy
-from repro_torch.configs import get_smoke_config
-from repro_torch.core import (TPU_V5E, LatencyModel, QoESpec,
+from repro_torch.cluster import (AdmissionConfig, ClusterConfig,
+                                 ClusterSimulator)
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core import (A100_4X, TPU_V5E, LatencyModel, QoESpec,
                               SchedulerConfig, make_scheduler)
 from repro_torch.core.qoe import pace_delivery
 from repro_torch.models import Model
 from repro_torch.serving import (Request, ReqState, ServingEngine,
+                                 ServingSimulator, SimConfig,
                                  timing_fingerprint)
+import repro_torch.workload as tw
 
 torch.set_num_threads(1)
 CAP = 100
@@ -153,6 +173,108 @@ def test_client_submit_prompt_and_callbacks():
     assert all(h.finished and h.request.generated == 6 for h in hs)
     assert counts == {"first": 3, "emit": 18, "finish": 3}
     assert client.backend.kv.slots_in_use == 0
+
+
+# ---------------------------------------------------------------------------
+# ServingClient over the simulator and over a cluster
+# ---------------------------------------------------------------------------
+
+SIM_M = 65_000
+
+
+def _sim(mod, scheduler="andes", kv=SIM_M):
+    if mod is tw:
+        lat = LatencyModel(get_config("opt-66b"), A100_4X)
+        return ServingSimulator(
+            make_scheduler(scheduler, kv, lat, SchedulerConfig()), lat,
+            SimConfig(kv_capacity_tokens=kv))
+    lat = JLat(j_get_config("opt-66b"), J_A100_4X)
+    return JSim(j_make_scheduler(scheduler, kv, lat, JSchedCfg()), lat,
+                JSimConfig(kv_capacity_tokens=kv))
+
+
+def _cluster(mod, n_replicas=1, kv=SIM_M, shed=False):
+    if mod is tw:
+        lat = LatencyModel(get_config("opt-66b"), A100_4X)
+        return ClusterSimulator(lat, ClusterConfig(
+            n_replicas=n_replicas, kv_capacity_tokens=kv,
+            admission=AdmissionConfig(policy="shed") if shed else None))
+    lat = JLat(j_get_config("opt-66b"), J_A100_4X)
+    return JCluster(lat, JClusterConfig(
+        n_replicas=n_replicas, kv_capacity_tokens=kv,
+        admission=JAdmission(policy="shed") if shed else None))
+
+
+def _gamma(mod, n, rate, seed):
+    return mod.make_workload(n, rate, seed=seed, arrival="gamma", cv=3.0)
+
+
+def _streams(handles):
+    return [(h.rid, h.shed, tuple(h.request.emit_times),
+             h.request.preemptions, h.qoe()) for h in handles]
+
+
+def _direct(reqs):
+    return [(r.rid, tuple(r.emit_times), r.preemptions, r.final_qoe())
+            for r in sorted(reqs, key=lambda r: r.rid)]
+
+
+@pytest.mark.parametrize("scheduler", ["andes", "fcfs"])
+def test_client_over_simulator_bit_identical_and_matches_reference(
+        scheduler):
+    direct = _sim(tw, scheduler).run(_gamma(tw, 100, 4.0, 11))
+    client = ServingClient(_sim(tw, scheduler))
+    res = client.serve(_gamma(tw, 100, 4.0, 11))
+    hs = sorted(client.handles(), key=lambda h: h.rid)
+    assert [s[:1] + s[2:] for s in _streams(hs)] == _direct(direct.requests)
+    assert (res.total_tokens, res.makespan) == \
+        (direct.total_tokens, direct.makespan)
+    jclient = JClient(_sim(jw, scheduler))
+    jclient.serve(_gamma(jw, 100, 4.0, 11))
+    assert _streams(hs) == _streams(sorted(jclient.handles(),
+                                           key=lambda h: h.rid))
+    assert client.avg_qoe() == jclient.avg_qoe()
+
+
+@pytest.mark.parametrize("n_replicas,kv,shed", [(1, SIM_M, False),
+                                               (2, 6_000, True)],
+                         ids=["one-replica", "two-replica-shed"])
+def test_client_over_cluster_bit_identical_and_matches_reference(
+        n_replicas, kv, shed):
+    """Client -> cluster ≡ direct cluster (≡ the bare simulator for one
+    replica) ≡ the reference client over the reference cluster."""
+    wl = (100, 4.0, 13) if not shed else (100, 12.0, 2)
+    direct = _cluster(tw, n_replicas, kv, shed).run(_gamma(tw, *wl))
+    client = ServingClient(_cluster(tw, n_replicas, kv, shed))
+    handles = [client.submit_request(r) for r in _gamma(tw, *wl)]
+    client.drain()
+    got = [s[:1] + s[2:] for s in _streams(handles)]
+    assert got == _direct(direct.admitted + direct.shed)
+    if n_replicas == 1:
+        assert got == _direct(_sim(tw).run(_gamma(tw, *wl)).requests)
+    jclient = JClient(_cluster(jw, n_replicas, kv, shed))
+    jhandles = [jclient.submit_request(r) for r in _gamma(jw, *wl)]
+    jclient.drain()
+    assert _streams(handles) == _streams(jhandles)
+    assert client.avg_qoe() == jclient.avg_qoe()
+    shed_h = [h for h in handles if h.shed]
+    assert bool(shed_h) == shed
+    for h in shed_h:
+        assert list(h) == [] and h.done and not h.finished
+        assert h.qoe() == 0.0
+
+
+def test_client_lazy_stream_iteration_matches_drain():
+    direct = _sim(tw).run(_gamma(tw, 60, 4.0, 17))
+    client = ServingClient(_sim(tw))
+    handles = [client.submit_request(r) for r in _gamma(tw, 60, 4.0, 17)]
+    events = {h.rid: list(h) for h in handles}      # lazy, interleaved
+    d = {r.rid: r for r in direct.requests}
+    for rid, evs in events.items():
+        assert [e.emit_time for e in evs] == d[rid].emit_times
+        np.testing.assert_array_equal(
+            [e.visible_time for e in evs],
+            pace_delivery(np.array(d[rid].emit_times), d[rid].spec.tds))
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,8 @@ import of ``jax`` (or ``jaxlib``) or of ``repro`` / ``repro.*`` anywhere
 in them — at top level or inside a function — fails. The GPU machine has
 no JAX, so an import there would break the port's entry points. A fresh
 interpreter then imports the port's server and entry modules and must
-leave ``jax`` and ``repro`` out of ``sys.modules``.
+leave ``jax`` and ``repro`` out of ``sys.modules``; so must the cluster
+layer and the workload generators.
 """
 import ast
 import os
@@ -51,7 +52,10 @@ def test_port_sources_found():
                  "src/repro_torch/obs/metrics.py",
                  "src/repro_torch/api/client.py",
                  "src/repro_torch/serving/tolerance.py",
-                 "src/repro_torch/serving/engine.py", "chip_smoke.py"):
+                 "src/repro_torch/serving/engine.py",
+                 "src/repro_torch/serving/simulator.py",
+                 "src/repro_torch/cluster/cluster_sim.py",
+                 "src/repro_torch/workload/sharegpt.py", "chip_smoke.py"):
         assert want in names, want
 
 
@@ -80,6 +84,8 @@ def test_server_import_leaves_jax_out():
             "import repro_torch.server, repro_torch.server.__main__\n"
             "import repro_torch.api, repro_torch.obs, repro_torch.serving\n"
             "import repro_torch.kernels.cuda, repro_torch.bridge\n"
+            "import repro_torch.cluster, repro_torch.workload\n"
+            "import repro_torch.serving.request\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\n"

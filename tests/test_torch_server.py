@@ -1,7 +1,11 @@
 """The port's HTTP/SSE server (``repro_torch.server``) on the CPU.
 
 Layered like the reference's server tests: SSE framing units (no socket);
-an engine-backed virtual-clock server over the port's engine for the
+a simulator-backed server over the port's ``ServingSimulator`` for the
+reference's protocol cases (healthz, lifecycle frames and pacing, network
+scenarios, a bad payload, metrics round trip, concurrent streams), its
+frames equal to the reference server's over the reference simulator; an
+engine-backed virtual-clock server over the port's engine for the
 protocol (healthz, metrics round trip, concurrent streams) and for token
 identity — the SSE stream carries exactly the tokens of a direct port
 run and of the reference engine (f32, weights bridged from the reference
@@ -40,7 +44,7 @@ from repro_torch.server import (SSEParser, ServerConfig, ServingServer,
                                 astream, build_engine, collect, fetch,
                                 format_sse, stream)
 from repro_torch.server.app import _Conn
-from repro_torch.serving import ServingEngine
+from repro_torch.serving import ServingEngine, ServingSimulator, SimConfig
 
 torch.set_num_threads(1)
 SPEC = QoESpec(ttft=1.0, tds=4.8)
@@ -78,6 +82,128 @@ def test_sse_parser_spec_features():
     assert evs[1] == ("multi", {"raw": "line1\nline2"})
     assert evs[2] == ("token", {"i": 0})
     assert evs == JSSEParser().feed(wire)
+
+
+# ---------------------------------------------------------------------------
+# simulator-backed server: the reference's protocol cases
+# ---------------------------------------------------------------------------
+
+def _sim_backend(kv=4_000):
+    cfg = get_smoke_config("llama3-8b")
+    lat = LatencyModel(cfg, TPU_V5E)
+    return ServingSimulator(make_scheduler("andes", kv, lat), lat,
+                            SimConfig(kv_capacity_tokens=kv))
+
+
+@pytest.fixture(scope="module")
+def sim_server():
+    srv = ServingServer(ServerConfig(clock="virtual", warmup=False),
+                        backend=_sim_backend())
+    srv.start()
+    yield srv
+    srv.shutdown(drain=False)
+
+
+SIM_PAYLOADS = ({"prompt_len": 8, "max_tokens": 6},
+                {"prompt_len": 8, "max_tokens": 6, "network": "ideal"},
+                {"prompt_len": 8, "max_tokens": 6, "network": "satellite"},
+                {"prompt_len": 30, "max_tokens": 4, "rid": 77})
+
+
+def test_sim_server_frames_match_reference_server():
+    """Sequential streams through the port's simulator-backed server carry
+    the frames the reference server sends over the reference simulator:
+    lifecycle, virtual emit times, paced visible times, QoE."""
+    from repro.configs import get_smoke_config as j_smoke
+    from repro.core import LatencyModel as JLat
+    from repro.core import TPU_V5E as J_TPU_V5E
+    from repro.core import make_scheduler as j_make_scheduler
+    from repro.server import ServingServer as JServingServer
+    from repro.serving import ServingSimulator as JSim
+    from repro.serving import SimConfig as JSimConfig
+    jlat = JLat(j_smoke("llama3-8b"), J_TPU_V5E)
+    jsrv = JServingServer(
+        JServerConfig(clock="virtual", warmup=False),
+        backend=JSim(j_make_scheduler("andes", 4_000, jlat), jlat,
+                     JSimConfig(kv_capacity_tokens=4_000)))
+    srv = ServingServer(ServerConfig(clock="virtual", warmup=False),
+                        backend=_sim_backend())
+    frames = []
+    for server in (jsrv, srv):
+        server.start()
+        try:
+            frames.append([collect("127.0.0.1", server.port, dict(p))
+                           for p in SIM_PAYLOADS])
+        finally:
+            server.shutdown(drain=False)
+    assert frames[0] == frames[1]
+    assert [evs[0][1]["rid"] for evs in frames[1]][-1] == 77
+
+
+def test_sim_server_healthz_404_and_lifecycle(sim_server):
+    status, body = fetch("127.0.0.1", sim_server.port, "/healthz")
+    assert status == 200 and json.loads(body)["ok"]
+    assert fetch("127.0.0.1", sim_server.port, "/nope")[0] == 404
+    evs = collect("127.0.0.1", sim_server.port,
+                  {"prompt_len": 8, "max_tokens": 6})
+    kinds = [k for k, _ in evs]
+    assert kinds[0] == "accepted" and kinds[-1] == "finish"
+    toks = [d for k, d in evs if k == "token"]
+    assert [d["index"] for d in toks] == list(range(6))
+    vis = [d["visible"] for d in toks]
+    assert all(b - a >= 1.0 / SPEC.tds - 1e-9
+               for a, b in zip(vis, vis[1:]))
+    assert evs[-1][1]["n_tokens"] == 6 and 0.0 <= evs[-1][1]["qoe"] <= 1.0
+
+
+def test_sim_server_network_scenario_paces_visible_times(sim_server):
+    ideal = collect("127.0.0.1", sim_server.port,
+                    {"prompt_len": 8, "max_tokens": 6, "network": "ideal"})
+    sat = collect("127.0.0.1", sim_server.port,
+                  {"prompt_len": 8, "max_tokens": 6, "network": "satellite"})
+    v_ideal = [d["visible"] for k, d in ideal if k == "token"]
+    v_sat = [d["visible"] for k, d in sat if k == "token"]
+    assert v_sat[0] >= v_ideal[0] + 0.25
+
+
+def test_sim_server_bad_payload_400(sim_server):
+    import socket
+    from repro_torch.server.client import _request_bytes, _split_head
+    with socket.create_connection(("127.0.0.1", sim_server.port), 5) as s:
+        s.sendall(_request_bytes("POST", "/v1/stream", "x", b"not json"))
+        data = b""
+        while True:
+            c = s.recv(65536)
+            if not c:
+                break
+            data += c
+    assert _split_head(data)[0] == 400
+
+
+def test_sim_server_concurrent_streams_and_metrics(sim_server):
+    async def many(n):
+        return await asyncio.gather(*[
+            astream("127.0.0.1", sim_server.port,
+                    {"prompt_len": 6, "max_tokens": 5}) for _ in range(n)])
+
+    results = asyncio.run(many(8))
+    rids = set()
+    for evs in results:
+        kinds = [k for k, _ in evs]
+        assert kinds[0] == "accepted" and kinds[-1] == "finish"
+        assert kinds.count("token") == 5
+        rids.add(evs[0][1]["rid"])
+    assert len(rids) == 8
+    status, text = fetch("127.0.0.1", sim_server.port, "/metrics")
+    assert status == 200
+    parsed = parse_prometheus(text)
+    live = registry_samples_dict(sim_server.registry)
+    assert parsed.keys() == live.keys()
+    for k, v in live.items():
+        assert parsed[k] == pytest.approx(v, rel=1e-6, abs=1e-9), k
+    assert parsed[("requests_submitted_total", ())] >= 8
+    assert parsed[("sse_events_flushed_total", ())] >= 40
+    assert parsed[("connection_events_total", (("event", "open"),))] >= 8
 
 
 # ---------------------------------------------------------------------------
