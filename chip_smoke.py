@@ -3,13 +3,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's three main paths — the Andes serving engine over the
-full-width, full-depth Llama-3-8B, Falcon-Mamba-7B and Zamba2-2.7B configs
-with random bf16 weights made from a seed — the HTTP/SSE server over the
-Llama-3-8B engine on the wall clock, and the cluster layer over
-engine-backed Llama-3-8B replicas, and holds every hand-written CUDA
-kernel on those paths against its plain PyTorch version. Phases, in
-order:
+Drives the port's main paths — the Andes serving engine over the
+full-width, full-depth Llama-3-8B, Falcon-Mamba-7B, Zamba2-2.7B and
+Qwen1.5-MoE-A2.7B configs with random bf16 weights made from a seed, the
+HTTP/SSE server over the Llama-3-8B engine on the wall clock, the cluster
+layer over engine-backed Llama-3-8B replicas, and speculative decoding
+over the Llama-3-8B target — and holds every hand-written CUDA kernel on
+those paths against its plain PyTorch version. Phases, in order:
 
 1. the device: name and power limit from nvidia-smi;
 2. build the CUDA kernels (one nvcc per source, in parallel), and count
@@ -31,12 +31,19 @@ order:
    beside SDPA, and the scan through Mamba-2's mapping
    (`ops.ssd_with_state`: NH 80, HD 64, N 64, 1 x 512 and B=4 ragged)
    against the plain Mamba-2 recurrence in f32 and bf16, timed beside the
-   function's bound and the kernel's exponential bound;
+   function's bound and the kernel's exponential bound. At qwen2-moe's
+   shapes (H = KV = 16, hd 128): decode and paged decode (page 16) at B=8
+   over depth 1024, and flash over one row at its exact length (389 and
+   64); at phase 10's: decode over caches 1028 deep for the llama3-8b
+   target and the foreign draft (H 4, KV 2, hd 32), and the draft's
+   flash (1 x 512 bucket);
 4. the smoke-size engines on the card against the same engines on the CPU
    (plain versions), f32, with a capacity that forces preemption: llama3
    over the contiguous cache and the page pool, falcon-mamba and zamba2
-   in swap and in recompute mode. Identical virtual timing and tokens identical up to
-   documented near-ties — the repo's differential check on a small input;
+   in swap and in recompute mode; the llama3 speculative engine (k = 2)
+   with the exact and a perturbed draft; qwen2-moe in swap and recompute
+   mode. Identical virtual timing and tokens identical up to documented
+   near-ties — the repo's differential check on a small input;
 5. the full-width llama3-8b engine, twice: over the physical page pool
    (page 16, paged decode kernel) and over the contiguous cache (decode
    kernel), with the launch counters set to 0 before and read after. Both
@@ -86,11 +93,53 @@ order:
    about twice the fleet's modelled capacity) through the QoE router with
    admission that sheds (8 slots, max_seq 2048, 16384 tokens per
    replica): every admitted request must finish, shed + admitted = 24.
-   In every run a replica's flash launches must be 32 per prefill group
-   and its decode launches 32 per decode iteration. It prints the
+   In every run a replica's flash launches must be one per layer and
+   prefill group and its decode launches one per layer and decode
+   iteration. It prints the
    admitted, shed and defer counts, preemptions, the fleet QoE and TTFT
    modelled by TPU_V5E, and the card's wall per decode iteration and per
-   prefill group per replica.
+   prefill group per replica;
+10. speculative decoding over phase 5's llama3-8b model and weights (k =
+   3, 8 slots, max_seq 1024, phase 5's trace, Andes, the
+   SpeculativeLatencyModel on TPU_V5E): first the kernels' half of full
+   acceptance — from one prefilled cache the target's verify of a window
+   is bitwise the draft-side decode steps that proposed it — and a
+   baseline engine whose cache is as deep as the spec engine's (max_seq
+   1028, so the decode plan splits it alike). Each speculative run must be
+   lossless against the baseline up to bf16 near-ties: the two schedules
+   differ, so the prompts land in prefill groups of other row counts and
+   the bf16 numerics differ slightly; each flip is classified by
+   ``audit_flips`` along the baseline engine's own layout
+   (``engine_margin``: bucketed prefill, decode from position
+   len(prompt) + 1), the exact-length margin printed beside it. 10a
+   the exact draft (the target's own params), at least one block of
+   rounds; the acceptance is printed (the draft computes one position
+   below the target, so it is not 1 by construction), and 10a runs again
+   with the plain attention versions in place of the kernels, which must
+   launch no kernel and must not accept everything where the kernels do
+   not; 10b a perturbed
+   draft (params + 1e-3 randn, seed 9) with blocks and with single
+   rounds, which must be bit for bit identical; 10c the reference test's
+   small foreign draft (1 layer, d 128, hd 32); 10d a 1-replica
+   ``speculative_backend`` cluster, fingerprint and tokens equal to 10a.
+   In every run flash = layers x prefill groups (target and draft),
+   decode = (k+1) x (target + draft layers) per round, no paged decode.
+   It prints rounds, tokens per round, acceptance, the card's wall per
+   round and per committed token beside the baseline's, and the modelled
+   TTFT, TDS and QoE;
+11. the full-width qwen2-moe-a2.7b engine (24 layers, 60 routed + 4
+   shared experts, top-4; bf16, seed 0) over phase 5's trace, over the
+   physical page pool (page 16) and the contiguous cache, then the
+   contiguous run again: one timing fingerprint, the rerun bitwise equal,
+   flash = 24 per eager exact-length prefill, decode or paged decode = 24
+   per decode iteration. Decode routes empty slots too, and their k/v
+   reads differ between the layouts, so at capacity 1 per expert the
+   pair's token flips are reported and held to the recorded count; the
+   pair again with nothing dropped
+   (capacity factor E / k) must agree up to bf16 near-ties. Also the
+   share of routed assignments dropped at decode, one prompt's logits
+   against the plain path on the card, and profiled decode and prefill
+   windows.
 
 It prints the kernels' JSON line, the card line, and last the result
 line {"ok": true, "device": {...}}. With no CUDA device, or outside a
@@ -100,6 +149,7 @@ returns.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -264,10 +314,9 @@ def check_kernels(torch):
         return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
-    def decode_case(b, lengths, extra="", heads=(32, 8, 128)):
-        """Decode over a (b, 1024, KV, hd) cache with `heads` = (H, KV,
-        hd); returns the inputs."""
-        s = 1024
+    def decode_case(b, lengths, extra="", heads=(32, 8, 128), s=1024):
+        """Decode over a (b, s, KV, hd) cache with `heads` = (H, KV, hd);
+        returns the inputs."""
         h, kv, hd = heads
         q = rnd(b, h, hd)
         k, v = rnd(b, s, kv, hd), rnd(b, s, kv, hd)
@@ -286,42 +335,58 @@ def check_kernels(torch):
             nbytes, 4 * h * hd * ctx, extra=extra)
         return row, (q, k, v, lengths, ctx, nbytes)
 
-    # ---- decode: B=8, H=32, KV=8, hd=128, cache depth 1024, ragged ----
-    lengths = torch.randint(1, 1024 + 1, (8,), generator=gen).to(torch.int32)
-    lengths[0] = 1024
-    rows["decode_attention"], (q, k, v, lengths, ctx, nbytes) = decode_case(
-        8, lengths)
-    dense = kc.decode_attention(q, k, v, lengths)
-
-    # ---- paged: the same, page 16 (main path) and page 1 --------------
-    h, hd = 32, 128
-    for page in (16, 1):
+    def paged_case(inputs, page, extra=""):
+        """The paged kernel over a shuffled pool holding decode_case's
+        rows: bitwise the contiguous kernel, and against its plain
+        version."""
+        q, k, v, lengths, ctx, nbytes = inputs
+        h, hd = q.shape[1:]
+        dense = kc.decode_attention(q, k, v, lengths)
         kp, vp, bt = _paginate(torch, k, v, lengths, page, gen)
         tab_bytes = sum(-(-int(n) // page) for n in lengths.tolist()) * 4
         out = kc.paged_decode_attention(q, kp, vp, bt, lengths)
         if not torch.equal(out, dense):
-            fail(f"paged decode (page {page}) is not bitwise the contiguous "
-                 "kernel")
-        r = record(
+            fail(f"paged decode (page {page}{extra}) is not bitwise the "
+                 "contiguous kernel")
+        return record(
             "paged_decode_attention", out,
             ref.paged_decode_attention_ref(q, kp, vp, bt, lengths),
             lambda: kc.paged_decode_attention(q, kp, vp, bt, lengths),
             lambda: ref.paged_decode_attention_ref(q, kp, vp, bt, lengths),
             None, nbytes + tab_bytes, 4 * h * hd * ctx,
-            extra=f" (page {page}, bitwise the contiguous kernel)")
-        if page == 16:
-            rows["paged_decode_attention"] = r
-        del kp, vp
-    del q, k, v, dense
+            extra=f" (page {page}{extra}, bitwise the contiguous kernel)")
+
+    # ---- decode: B=8, H=32, KV=8, hd=128, cache depth 1024, ragged ----
+    lengths = torch.randint(1, 1024 + 1, (8,), generator=gen).to(torch.int32)
+    lengths[0] = 1024
+    rows["decode_attention"], inputs = decode_case(8, lengths)
+    # ---- paged: the same, page 16 (main path) and page 1 --------------
+    rows["paged_decode_attention"] = paged_case(inputs, 16)
+    paged_case(inputs, 1)
+    del inputs
     # ---- decode at B=1, full depth: one request decoding alone ---------
     decode_case(1, torch.tensor([1024], dtype=torch.int32), extra=" (B=1)")
     # ---- decode at zamba2's shared attention: H = KV = 32, hd 80 -------
     decode_case(8, lengths, heads=(32, 32, 80),
                 extra=" (zamba2: B=8, H=KV=32, hd 80)")
+    # ---- qwen2-moe-a2.7b (phase 11): H = KV = 16 (G = 1), hd 128, both
+    # layouts ------------------------------------------------------------
+    _, inputs = decode_case(8, lengths, heads=(16, 16, 128),
+                            extra=" (qwen2-moe: B=8, H=KV=16, hd 128)")
+    paged_case(inputs, 16, extra=", qwen2-moe: H=KV=16")
+    del inputs
+    # ---- phase 10's caches, max_seq + k + 1 = 1028 deep: the llama3-8b
+    # target and the foreign draft (H 4, KV 2, hd 32) --------------------
+    spec_lengths = lengths.clone()
+    spec_lengths[1] = 1028
+    decode_case(8, spec_lengths, s=1028,
+                extra=" (speculative target: B=8, depth 1028)")
+    decode_case(8, spec_lengths, heads=(4, 2, 32), s=1028,
+                extra=" (foreign draft: B=8, H=4, KV=2, hd 32, depth 1028)")
 
-    def flash_case(lengths, extra="", heads=(32, 8, 128)):
-        """Causal prefill of len(lengths) rows of a 512 bucket."""
-        b, s = len(lengths), 512
+    def flash_case(lengths, extra="", heads=(32, 8, 128), s=512):
+        """Causal prefill of len(lengths) rows of an `s` bucket."""
+        b = len(lengths)
         h, kv, hd = heads
         q = rnd(b, s, h, hd)
         k, v = rnd(b, s, kv, hd), rnd(b, s, kv, hd)
@@ -350,6 +415,14 @@ def check_kernels(torch):
     # ---- prefill at zamba2's shared attention, the engine's 1 x 512 ----
     flash_case([512], heads=(32, 32, 80),
                extra=" (zamba2: 1 x 512, H=KV=32, hd 80)")
+    # ---- qwen2-moe-a2.7b's eager prefill: one row at its exact length,
+    # G = 1 -------------------------------------------------------------
+    for n in (389, 64):
+        flash_case([n], heads=(16, 16, 128), s=n,
+                   extra=f" (qwen2-moe: 1 x {n} exact, H=KV=16, hd 128)")
+    # ---- the foreign draft's bucketed prefill: H 4, KV 2, hd 32 -------
+    flash_case([389], heads=(4, 2, 32),
+               extra=" (foreign draft: 1 x 512 bucket, H=4, KV=2, hd 32)")
     print(f"  launches by body (phase 3): {dict(kc.variant_launches)}",
           flush=True)
     rows["selective_scan"] = check_scan(torch, flush, gen)
@@ -602,6 +675,14 @@ def _instrument(eng, timers):
     eng._decode_multi = timed(eng._decode_multi, "decode", lambda a, k: a[3])
     eng._decode_tok = timed(eng._decode_tok, "decode", lambda a, k: 1)
     eng._decode = timed(eng._decode, "decode", lambda a, k: 1)
+    if eng.spec_k:
+        # rounds: one per fused round, `s` per block (all run on the card)
+        eng._spec_fused = timed(eng._spec_fused, "spec", lambda a, k: 1)
+        eng._spec_block = timed(eng._spec_block, "spec", lambda a, k: a[6])
+        if eng.draft.bucketed is not None:
+            eng.draft.bucketed._call = timed(
+                eng.draft.bucketed._call, "draft_prefill",
+                lambda a, k: tuple(a[1].shape))
 
 
 def _to(tree, dev):
@@ -653,6 +734,90 @@ def check_small_engine(torch):
         if not all_flips_documented(flips):
             fail(f"smoke {arch} engine token divergence beyond near-ties: "
                  f"{flips}")
+
+
+def _perturbed(torch, params, seed):
+    """params + 1e-3 * randn (a seeded generator on the params' device),
+    in the params' dtype; stacked (3-d and up) leaves one layer at a
+    time."""
+    gen = torch.Generator(device=next(_leaves(params)).device)
+    gen.manual_seed(seed)
+
+    def leaf(t):
+        out = torch.empty_like(t)
+        stacked = t.dim() >= 3
+        for i in range(t.shape[0] if stacked else 1):
+            src, dst = (t[i], out[i]) if stacked else (t, out)
+            noise = torch.randn(src.shape, generator=gen, device=t.device)
+            dst.copy_((src.float() + 1e-3 * noise).to(t.dtype))
+        return out
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        return leaf(tree)
+    return walk(params)
+
+
+def check_small_spec_moe(torch):
+    """Phase 4's speculative and MoE cases: the llama3 smoke spec engine
+    (k = 2, a capacity that preempts) with the exact and a perturbed draft,
+    and the qwen2-moe smoke engine in swap and recompute mode, each on
+    the card against the same engine on the CPU (f32)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import (TPU_V5E, LatencyModel, SchedulerConfig,
+                                  SpeculativeLatencyModel, make_scheduler)
+    from repro_torch.models import Model
+    from repro_torch.serving import (ServingEngine, all_flips_documented,
+                                     audit_flips, timing_fingerprint)
+    runs = [("llama3-8b", "exact", dict()), ("llama3-8b", "perturbed", dict()),
+            ("qwen2-moe-a2.7b", None, dict(preemption_mode="swap")),
+            ("qwen2-moe-a2.7b", None, dict(preemption_mode="recompute"))]
+    for arch, draft, kw in runs:
+        cfg = get_smoke_config(arch)
+        cpu = Model(cfg, device="cpu")
+        params = cpu.init(torch.Generator().manual_seed(0))
+        gpu = Model(cfg, device="cuda")
+        dparams = (params if draft in (None, "exact")
+                   else _perturbed(torch, params, 9))
+        trace = make_trace(12, cfg.vocab_size, 0, (5, 30), (14, 15), 0.01)
+        outs, engs = [], []
+        for m, p, dp in ((cpu, params, dparams),
+                         (gpu, _to(params, "cuda"), _to(dparams, "cuda"))):
+            if draft:
+                lat = SpeculativeLatencyModel(cfg, TPU_V5E, cfg, k=2)
+                kw = dict(draft_model=m, draft_params=dp, spec_k=2)
+            else:
+                lat = LatencyModel(cfg, TPU_V5E)
+            eng = ServingEngine(m, p, make_scheduler(
+                "andes", 100, lat, SchedulerConfig(delta_t=2.0)), lat,
+                num_slots=4, max_seq=64, capacity_tokens=100,
+                device=m.device, **kw)
+            outs.append(eng.run([r.clone() for r in trace],
+                                max_iterations=4000))
+            engs.append(eng)
+        same_t = timing_fingerprint(outs[0]) == timing_fingerprint(outs[1])
+        flips = audit_flips(cpu, params, outs[0], outs[1])
+        n_same = sum(a.output_tokens == b.output_tokens
+                     for a, b in zip(*outs))
+        label = f"smoke {arch} " + (f"spec k=2 {draft} draft" if draft
+                                    else f"engine {kw}")
+        acc = (f", acceptance card {engs[1].spec_stats()['accepted']}/"
+               f"{engs[1].spec_stats()['proposed']} CPU "
+               f"{engs[0].spec_stats()['accepted']}/"
+               f"{engs[0].spec_stats()['proposed']}" if draft else "")
+        print(f"  {label}: timing identical {same_t}, preemptions "
+              f"{engs[1].preemptions}, token-identical requests "
+              f"{n_same}/{len(trace)}, flips {flips}{acc}", flush=True)
+        if not engs[1].preemptions:
+            fail(f"{label}: the trace did not preempt")
+        if not all_flips_documented(flips):
+            fail(f"{label}: token divergence beyond near-ties: {flips}")
+        if not flips and not same_t:
+            fail(f"{label}: timing differs between the card and the CPU")
+        if draft == "exact" and not flips and \
+                engs[0].spec_stats() != engs[1].spec_stats():
+            fail(f"{label}: acceptance differs between the card and the CPU")
 
 
 def report_run(name, eng, out, timers, wall, launches):
@@ -1492,6 +1657,501 @@ def check_cluster(torch, model, params):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: speculative decoding over the full-width llama3-8b model
+# ---------------------------------------------------------------------------
+
+SPEC_K = 3                  # speculative_backend's default
+
+
+def serve_spec(torch, model, params, draft, dparams, trace, *, hotpath=None,
+               max_seq=1024):
+    """One speculative engine run (k = SPEC_K, 8 slots, Andes, the
+    SpeculativeLatencyModel on TPU_V5E, virtual clock), instrumented,
+    with the launch counters set to 0 just before and read just after.
+    Returns (out, eng, launches, timers, wall seconds)."""
+    from repro_torch.core import (TPU_V5E, SchedulerConfig,
+                                  SpeculativeLatencyModel, make_scheduler)
+    from repro_torch.kernels import cuda as kc
+    from repro_torch.serving import ServingEngine
+    lat = SpeculativeLatencyModel(model.cfg, TPU_V5E, draft.cfg, k=SPEC_K)
+    sched = make_scheduler("andes", 8 * 1024, lat,
+                           SchedulerConfig(delta_t=50.0))
+    eng = ServingEngine(model, params, sched, lat, num_slots=8,
+                        max_seq=max_seq, capacity_tokens=8 * 1024,
+                        cache_dtype=torch.bfloat16, draft_model=draft,
+                        draft_params=dparams, spec_k=SPEC_K, hotpath=hotpath,
+                        device=model.device)
+    timers = {}
+    _instrument(eng, timers)
+    torch.cuda.synchronize()
+    kc.reset_launches()
+    t = time.perf_counter()
+    out = eng.run([r.clone() for r in trace], max_iterations=100_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return out, eng, dict(kc.launches), timers, wall
+
+
+def check_spec_launches(label, launches, timers, n_target, n_draft):
+    """flash = target layers x target prefill groups + draft layers x
+    draft prefill groups; decode = (k+1) x (target + draft layers) per
+    round run on the card; no paged decode. Returns the rounds."""
+    groups = len(timers.get("prefill", []))
+    dgroups = len(timers.get("draft_prefill", []))
+    rounds = sum(n for _, n in timers.get("spec", []))
+    want = {"flash_attention": n_target * groups + n_draft * dgroups,
+            "decode_attention": (SPEC_K + 1) * (n_target + n_draft) * rounds,
+            "paged_decode_attention": 0}
+    for k, v in want.items():
+        if launches[k] != v:
+            fail(f"{label}: {launches[k]} {k} launches, expected {v} "
+                 f"({groups} + {dgroups} prefill groups, {rounds} rounds)")
+    return rounds
+
+
+def report_spec(label, eng, out, timers, wall, launches, base_tok_ms, card):
+    """Print a spec run: rounds, tokens per round, acceptance, the card's
+    wall per round and per committed token beside the baseline's, the
+    modelled TTFT / TDS / QoE; fail on an unfinished request."""
+    import numpy as np
+    st = eng.spec_stats()
+    spec = timers.get("spec", [])
+    rounds = sum(n for _, n in spec)
+    spec_ms = sum(ms for ms, _ in spec)
+    decoded = sum(r.generated - 1 for r in out)
+    pre = timers.get("prefill", []) + timers.get("draft_prefill", [])
+    res = eng.result()
+    print(f"  {label} ({card}): wall {wall:.2f} s; {rounds} rounds on the "
+          f"card in "
+          f"{len(spec)} dispatches ({eng.multi_step_blocks} blocks), "
+          f"{eng.iterations} committed; {decoded} decoded tokens, "
+          f"{decoded / max(st['spec_steps'], 1):.3f} per slot-round, "
+          f"{decoded / max(eng.iterations, 1):.2f} per committed round; "
+          f"acceptance {st['accepted']}/{st['proposed']} = "
+          f"{st['acceptance_rate']:.4f}; launches {launches}", flush=True)
+    print(f"  {label} ({card}; card-measured, synchronized): "
+          f"{spec_ms / max(rounds, 1):.2f} ms per round, "
+          f"{spec_ms / max(decoded, 1):.3f} ms per committed token vs the "
+          f"baseline's {base_tok_ms:.3f} ms per token; prefill "
+          f"{sum(ms for ms, _ in pre):.1f} ms in {len(pre)} groups "
+          f"(target {[s for _, s in timers.get('prefill', [])]}, draft "
+          f"{[s for _, s in timers.get('draft_prefill', [])]})", flush=True)
+    print(f"  {label} (modelled by the TPU_V5E virtual clock, not "
+          f"measured; beside {card}): TTFT mean "
+          f"{float(np.mean(res.ttfts())):.4f} s, TDS "
+          f"mean {float(np.mean(res.tds())):.3f} tok/s, avg QoE "
+          f"{res.avg_qoe():.4f}, makespan {res.makespan:.3f} s, "
+          f"preemptions {res.preemptions}", flush=True)
+    short = [r.rid for r in out if r.generated != r.output_len]
+    if short:
+        fail(f"{label}: requests {short} did not finish")
+
+
+def check_lossless(base_eng, base, out, label):
+    """A speculative run against the same-depth baseline: tokens equal up
+    to near-ties. Each flip is classified by `audit_flips` along the
+    baseline engine's own layout (`engine_margin`), the exact-length
+    margin printed beside it."""
+    from repro_torch.serving import all_flips_documented, audit_flips
+    flips = audit_flips(base_eng.model, base_eng.params, base, out,
+                        tol=BF16_FLIP_TOL, engine=base_eng)
+    print(f"  {label} vs baseline: {len(flips)} requests with token "
+          f"differences, flips {flips} (tol {BF16_FLIP_TOL}; margin: the "
+          "engine's layout, exact_margin: the exact-length path)",
+          flush=True)
+    if not all_flips_documented(flips):
+        fail(f"{label}: tokens diverge beyond near-ties: {flips}")
+
+
+def check_verify_determinism(torch, model, params):
+    """The kernel-determinism half of full acceptance: from one prefilled
+    cache (8 rows, depth max_seq + k + 1), the draft-side propose on a
+    copy and the target-side verify of its window compute the same
+    positions from the same inputs in caches of the same shape, so the
+    verify logits must be bitwise the propose steps' and every proposal
+    must verify (acceptance k on every row)."""
+    import numpy as np
+    depth = 1024 + SPEC_K + 1
+    rng = np.random.default_rng(10)
+    lens = rng.integers(64, 513, 8).astype(np.int32)
+    toks = np.zeros((8, 512), np.int32)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(0, model.cfg.vocab_size, n)
+    cache = model.init_cache(8, depth, dtype=torch.bfloat16)
+    logits, cache = model.prefill(params, {
+        "tokens": torch.as_tensor(toks).cuda(),
+        "lengths": torch.as_tensor(lens).cuda()}, cache)
+    first = torch.argmax(logits, dim=-1).to(torch.int32)
+    copy = {k: v.clone() for k, v in cache.items()}
+    steps, tok = [], first
+    for _ in range(SPEC_K + 1):                # the propose loop, logged
+        lg, copy = model.decode_step(params, tok, copy)
+        steps.append(lg)
+        tok = torch.argmax(lg, dim=-1).to(torch.int32)
+    props = torch.stack([torch.argmax(x, dim=-1).to(torch.int32)
+                         for x in steps], dim=1)
+    window = torch.cat([first[:, None], props[:, :SPEC_K]], dim=1)
+    vlogits, _ = model.verify_step(params, window, cache)
+    same = torch.equal(vlogits, torch.stack(steps, dim=1))
+    greedy = torch.argmax(vlogits, dim=-1).to(torch.int32)
+    accepted = torch.cumprod((window[:, 1:] == greedy[:, :SPEC_K]).int(),
+                             dim=1).sum(dim=1)
+    print(f"  verify vs propose on one cache (8 rows, depth {depth}): "
+          f"logits bitwise equal {same}, accepted per row "
+          f"{accepted.tolist()} of {SPEC_K}", flush=True)
+    if not same or int(accepted.min()) != SPEC_K:
+        fail("verify is not bitwise the draft's decode steps on the card")
+
+
+def check_speculative(torch, model, params, card):
+    """Phase 10: the speculative engine over phase 5's full-width model
+    and bf16 weights, phase 5's trace, k = 3, 8 slots, max_seq 1024.
+    10a exact draft, 10b perturbed draft (blocks and single rounds), 10c
+    the reference test's small foreign draft, 10d a 1-replica
+    speculative_backend cluster. Returns the kernel launches of its
+    runs."""
+    import dataclasses
+    from repro_torch.cluster import ClusterConfig, speculative_backend
+    from repro_torch.core import TPU_V5E, LatencyModel, SchedulerConfig
+    from repro_torch.models import Model
+    from repro_torch.serving import HotpathConfig, timing_fingerprint
+
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    L = cfg.num_layers
+    trace = make_trace(12, cfg.vocab_size, 0, (64, 513), (32, 65), 0.05)
+    total = dict.fromkeys(ATTENTION_KERNELS, 0)
+
+    def add(n):
+        for k in total:
+            total[k] += n.get(k, 0)
+
+    check_verify_determinism(torch, model, params)
+    # the same-depth baseline: its cache is the spec engine's _cache_seq
+    # deep, so the decode plan splits it as the spec engine's
+    base, beng, n, timers = timed_run(
+        torch, model, params, trace, "10 baseline (max_seq 1028)",
+        num_slots=8, max_seq=1024 + SPEC_K + 1, cache_dtype=torch.bfloat16,
+        capacity=8 * 1024)
+    add(n)
+    dec = timers.get("decode", [])
+    base_ms = sum(ms for ms, _ in dec)
+    base_tok_ms = base_ms / max(sum(r.generated - 1 for r in base), 1)
+    print(f"  10 baseline: {base_ms / max(sum(k for _, k in dec), 1):.2f} "
+          f"ms per decode iteration, {base_tok_ms:.3f} ms per decoded "
+          f"token ({card}; card-measured)", flush=True)
+
+    def lossless(label, out):
+        check_lossless(beng, base, out, label)
+
+    # ---- 10a: the exact draft (the target's own params) ----------------
+    out_a, eng, n, timers, wall = serve_spec(torch, model, params, model,
+                                             params, trace)
+    add(n)
+    check_spec_launches("10a", n, timers, L, L)
+    report_spec("10a exact draft", eng, out_a, timers, wall, n, base_tok_ms,
+                card)
+    if not eng.multi_step_blocks:
+        fail("10a: no speculative block ran")
+    lossless("10a", out_a)
+    acc_a = eng.spec_stats()["acceptance_rate"]
+    # a second witness for where the shortfall comes from: 10a again with
+    # the plain attention versions in place of the kernels, on the card
+    with plain_attention():
+        out_p, eng_p, n_p, _, wall_p = serve_spec(torch, model, params,
+                                                  model, params, trace)
+    acc_p = eng_p.spec_stats()["acceptance_rate"]
+    same_p = [r.output_tokens for r in out_p] == \
+        [r.output_tokens for r in out_a]
+    print(f"  10a acceptance: kernels {acc_a:.4f}, plain attention "
+          f"versions {acc_p:.4f} ({eng_p.spec_stats()['accepted']}/"
+          f"{eng_p.spec_stats()['proposed']}; tokens equal to the kernels' "
+          f"run {same_p}; wall {wall_p:.2f} s). The draft holds "
+          "committed[:-1], so it computes the last committed token one "
+          "position below the target, whose decode attends the padding "
+          "k/v its prefill left at position len(prompt) — the reference's "
+          "design; the verify-vs-propose check above holds the kernels "
+          "bitwise", flush=True)
+    if any(n_p.values()):
+        fail(f"10a plain: kernels launched on the plain path: {n_p}")
+    if acc_a < 1.0 and acc_p >= 1.0:
+        fail("10a: the plain attention path accepts every proposal, the "
+             "kernels do not")
+    del out_p, eng_p
+
+    # ---- 10b: the perturbed draft, blocks and single rounds ------------
+    pert = _perturbed(torch, params, 9)
+    runs_b = {}
+    for name, hp in (("blocks", None),
+                     ("single rounds", HotpathConfig(persistent=False))):
+        out, eng, n, timers, wall = serve_spec(torch, model, params, model,
+                                               pert, trace, hotpath=hp)
+        add(n)
+        check_spec_launches(f"10b {name}", n, timers, L, L)
+        report_spec(f"10b perturbed draft, {name}", eng, out, timers, wall,
+                    n, base_tok_ms, card)
+        runs_b[name] = [(r.output_tokens, r.emit_times, r.preemptions)
+                        for r in out]
+        lossless(f"10b {name}", out)
+    if runs_b["blocks"] != runs_b["single rounds"]:
+        fail("10b: blocks and single rounds differ in tokens, emit times "
+             "or preemptions")
+    print("  10b: blocks and single rounds bit-for-bit identical (tokens, "
+          "emit times, preemptions)", flush=True)
+    del pert
+    torch.cuda.empty_cache()
+
+    # ---- 10c: the reference test's small foreign draft -----------------
+    small = Model(dataclasses.replace(
+        cfg, name=cfg.name + "-draft", num_layers=1, d_model=128,
+        num_heads=4, num_kv_heads=2, d_ff=256), device="cuda")
+    sparams = small.init(torch.Generator(device="cuda").manual_seed(7),
+                         torch.bfloat16)
+    out, eng, n, timers, wall = serve_spec(torch, model, params, small,
+                                           sparams, trace)
+    add(n)
+    check_spec_launches("10c", n, timers, L, 1)
+    report_spec("10c foreign draft (1 layer, d 128, hd 32)", eng, out,
+                timers, wall, n, base_tok_ms, card)
+    lossless("10c", out)
+    del small, sparams
+
+    # ---- 10d: a 1-replica speculative_backend cluster over 10a ---------
+    lat = LatencyModel(cfg, TPU_V5E)
+    res, per, n, wall = run_fleet(torch, lat, ClusterConfig(
+        n_replicas=1, router="round_robin", scheduler="andes",
+        kv_capacity_tokens=8 * 1024, sched_cfg=SchedulerConfig(delta_t=50.0),
+        backend_factory=speculative_backend(
+            model, params, model, params, spec_k=SPEC_K, num_slots=8,
+            max_seq=1024, capacity_tokens=8 * 1024,
+            cache_dtype=torch.bfloat16, device=model.device)), trace)
+    add(n)
+    routed = sorted(res.admitted, key=lambda r: r.rid)
+    same_t = timing_fingerprint(routed) == timing_fingerprint(out_a)
+    same_tok = [r.output_tokens for r in routed] == \
+        [r.output_tokens for r in out_a]
+    (timers, _), = per.values()
+    check_spec_launches("10d", n, timers, L, L)
+    print(f"  10d 1-replica speculative_backend cluster vs the bare spec "
+          f"engine: timing identical {same_t}, tokens identical {same_tok}, "
+          f"wall {wall:.2f} s", flush=True)
+    if not same_t or not same_tok or res.shed:
+        fail("10d: the 1-replica speculative cluster differs from the bare "
+             "speculative engine")
+    print(f"  phase 10 wall {time.perf_counter() - t_phase:.2f} s; launches "
+          f"{total}", flush=True)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the full-width qwen2-moe-a2.7b engine
+# ---------------------------------------------------------------------------
+
+# Paged against contiguous at capacity 1 per expert: the requests whose
+# tokens differ, and those beyond a near-tie, in the recorded run (NVIDIA
+# H100 80GB HBM3, 700 W; both layouts are deterministic, so a rerun
+# repeats them). More means the layouts drifted further apart.
+MOE_CAP1_FLIPS = 9
+MOE_CAP1_REAL = 3
+
+
+def _count_moe_drops(counts):
+    """Wrap `moe.route` to add, on the device, the routed assignments and
+    the kept ones of every call over `counts["slots"]` tokens (a decode
+    step over every slot); returns the restore function."""
+    from repro_torch.models import moe as moe_lib
+    route = moe_lib.route
+
+    def counted(router, xt, cfg, valid=None):
+        plan = route(router, xt, cfg, valid)
+        if xt.shape[0] == counts["slots"]:
+            counts["routed"] += plan["keep"].numel()
+            counts["kept"] = counts["kept"] + plan["keep"].sum()
+        return plan
+    moe_lib.route = counted
+
+    def restore():
+        moe_lib.route = route
+    return restore
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Route the model's three attention entry points to their plain
+    PyTorch versions, on the card, for the duration."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref
+    names = ("attention", "decode_attention", "paged_decode_attention")
+    saved = {n: getattr(ops, n) for n in names}
+    ops.attention = ref.attention_ref
+    ops.decode_attention = ref.decode_attention_ref
+    ops.paged_decode_attention = ref.paged_decode_attention_ref
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(ops, n, f)
+
+
+def check_plain_logits(torch, model, params, prompt):
+    """One prompt's last-token logits on the card (the kernels) against
+    the plain path on the card (the kernels' plain versions): finite, of
+    the vocab's width, the same top token or a bf16 near-tie."""
+    import numpy as np
+    toks = torch.as_tensor(np.asarray(prompt, np.int32))[None].cuda()
+
+    def run():
+        lg, _ = model.prefill(params, {"tokens": toks}, model.init_cache(
+            1, toks.shape[1] + 1, dtype=torch.bfloat16))
+        return lg.float()[0]
+    kern = run()
+    with plain_attention():
+        plain = run()
+    if kern.shape != (model.cfg.vocab_size,) or \
+            not bool(torch.isfinite(kern).all()):
+        fail(f"bad logits: shape {tuple(kern.shape)}")
+    top_k, top_p = int(kern.argmax()), int(plain.argmax())
+    margin = float(plain[top_p] - plain[top_k])
+    print(f"  logits (1 x {toks.shape[1]}) finite, shape {tuple(kern.shape)}"
+          f"; vs the plain path on the card: max |diff| "
+          f"{float((kern - plain).abs().max()):.4f} (max |logit| "
+          f"{float(plain.abs().max()):.3f}), top token {top_k} vs {top_p}"
+          f" (margin {margin:.4f})", flush=True)
+    if top_k != top_p and margin > BF16_FLIP_TOL:
+        fail("the card's logits disagree with the plain path beyond a "
+             "near-tie")
+
+
+def moe_run(torch, model, params, trace, name, drops=None, **kw):
+    """One MoE engine run (8 slots, max_seq 1024, bf16) with its eager
+    prefill calls timed, the launch counters set to 0 just before and
+    read just after, and (with `drops`) the decode routing counted.
+    Checks the launches: flash = layers per prefill call, decode or paged
+    decode = layers per decode iteration. Returns (out, eng, launches)."""
+    from repro_torch.kernels import cuda as kc
+    L = model.cfg.num_layers
+    prefill = model.prefill
+    timers = {}
+
+    def timed_prefill(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = prefill(*a, **k)
+        torch.cuda.synchronize()
+        timers.setdefault("prefill", []).append(
+            ((time.perf_counter() - t0) * 1e3, tuple(a[1]["tokens"].shape)))
+        return res
+    model.prefill = timed_prefill
+    restore = _count_moe_drops(drops) if drops else (lambda: None)
+    try:
+        torch.cuda.synchronize()
+        kc.reset_launches()
+        t = time.perf_counter()
+        out, eng = serve(model, params, trace, num_slots=8, max_seq=1024,
+                         cache_dtype=torch.bfloat16, capacity=8 * 1024,
+                         timers=timers, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        n = dict(kc.launches)
+    finally:
+        del model.prefill
+        restore()
+    report_run(name, eng, out, timers, wall, n)
+    calls = len(timers.get("prefill", []))
+    iters = sum(k for _, k in timers.get("decode", []))
+    paged = "page_size" in kw
+    want = {"flash_attention": L * calls,
+            "decode_attention": 0 if paged else L * iters,
+            "paged_decode_attention": L * iters if paged else 0}
+    if eng.physical_pages != paged:
+        fail(f"engine {name}: physical_pages={eng.physical_pages}")
+    if any(rows != 1 for rows, _ in eng.hotpath_stats()["prefill_shapes"]):
+        fail(f"engine {name}: a MoE prefill was batched or bucketed")
+    for k, v in want.items():
+        if n[k] != v:
+            fail(f"engine {name}: {n[k]} {k} launches, expected {v} "
+                 f"({calls} prefill calls, {iters} decode iterations)")
+    return out, eng, n
+
+
+def check_moe_engine(torch, card):
+    """Phase 11: the full-width qwen2-moe-a2.7b engine (24 layers, 60
+    routed experts + 4 shared, top-4; bf16, seed 0) over phase 5's trace
+    with ids from its vocab, over the physical page pool (page 16) and the
+    contiguous cache, and the contiguous run again. Decode routes every
+    slot, empty ones included, and an empty slot reads different k/v in
+    the two layouts (its own row's position 0 against the pool's clamped
+    sentinel page), so at capacity 1 per expert the layouts may drop
+    different assignments of the live rows: the pair must share one
+    timing fingerprint, and its token flips are reported. The pair again
+    with the capacity factor at E / k (nothing drops, so no slot is
+    coupled to another) must agree on tokens up to bf16 near-ties, and
+    the contiguous rerun bitwise (the combine sums in a fixed order).
+    Returns the kernel launches of its runs."""
+    from repro_torch.configs.qwen2_moe_a2_7b import CONFIG
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.serving import audit_flips, timing_fingerprint
+
+    t_phase = time.perf_counter()
+    model, params = full_width_model(torch, CONFIG)
+    m = CONFIG.moe
+    trace = make_trace(12, CONFIG.vocab_size, 0, (64, 513), (32, 65), 0.05)
+    total = dict.fromkeys(ATTENTION_KERNELS, 0)
+
+    def run(name, drops=None, **kw):
+        out, eng, n = moe_run(torch, model, params, trace, name, drops, **kw)
+        for k in total:
+            total[k] += n[k]
+        return out
+
+    drops = dict(slots=8, routed=0, kept=0)
+    a = run("moe paged16", drops, page_size=16)
+    b = run("moe contiguous")
+    c = run("moe contiguous rerun")
+    if timing_fingerprint(a) != timing_fingerprint(b):
+        fail("moe: paged and contiguous engines differ in timing")
+    if [(r.output_tokens, r.emit_times) for r in b] != \
+            [(r.output_tokens, r.emit_times) for r in c]:
+        fail("moe: two contiguous runs differ: the card run is not "
+             "deterministic")
+    flips = audit_flips(model, params, a, b, tol=BF16_FLIP_TOL)
+    real = [f for f in flips if f["classification"] != "documented_ulp_flip"]
+    print(f"  moe paged vs contiguous: timing identical; contiguous rerun "
+          f"bitwise identical; {len(flips)} requests with token "
+          f"differences ({len(real)} beyond a near-tie; recorded "
+          f"{MOE_CAP1_FLIPS} and {MOE_CAP1_REAL}), flips {flips} (tol "
+          f"{BF16_FLIP_TOL}; empty-slot routing at capacity 1 differs "
+          "between the layouts)", flush=True)
+    if len(flips) > MOE_CAP1_FLIPS or len(real) > MOE_CAP1_REAL:
+        fail(f"moe: paged and contiguous differ in {len(flips)} requests, "
+             f"{len(real)} beyond a near-tie: more than the recorded "
+             f"{MOE_CAP1_FLIPS} and {MOE_CAP1_REAL}")
+    kept = int(drops["kept"])
+    print(f"  moe decode routing (paged run; {card}): "
+          f"{drops['routed'] - kept} of {drops['routed']} routed "
+          f"assignments dropped at capacity "
+          f"{int(moe_lib.CAPACITY_FACTOR * 8 * m.top_k / m.num_experts) + 1}"
+          f" per expert = {1 - kept / max(drops['routed'], 1):.4f}",
+          flush=True)
+    saved = moe_lib.CAPACITY_FACTOR
+    moe_lib.CAPACITY_FACTOR = m.num_experts / m.top_k     # cap = t
+    try:
+        a = run("moe paged16, no drop", page_size=16)
+        b = run("moe contiguous, no drop")
+    finally:
+        moe_lib.CAPACITY_FACTOR = saved
+    if timing_fingerprint(a) != timing_fingerprint(b):
+        fail("moe no drop: paged and contiguous engines differ in timing")
+    check_bf16_flips(model, params, a, b, "moe paged vs contiguous, no drop")
+    check_plain_logits(torch, model, params, a[0].prompt_tokens)
+    profile_engine_steps(torch, model, params)
+    print(f"  phase 11 wall {time.perf_counter() - t_phase:.2f} s; launches "
+          f"{total}", flush=True)
+    del model, params
+    return total
+
+
 def profile_window(torch, label, fn, steps):
     """Trace fn() with torch.profiler: card-busy time (sum of kernel
     device time) against the synchronized host wall time of the window,
@@ -1614,6 +2274,7 @@ def main() -> None:
 
     print("[4] smoke engines, card vs CPU (f32):", flush=True)
     check_small_engine(torch)
+    check_small_spec_moe(torch)
 
     print("[5] full-width llama3-8b engine (bf16):", flush=True)
     launches, llama, llama_params = check_full_engine(torch)
@@ -1638,7 +2299,19 @@ def main() -> None:
           f"replicas (bf16, virtual clock; {card}):", flush=True)
     for k, n in check_cluster(torch, llama, llama_params).items():
         launches[k] += n
+    torch.cuda.empty_cache()
+
+    print("[10] speculative decoding over the full-width llama3-8b model "
+          f"(bf16, k={SPEC_K}, virtual clock; {card}):", flush=True)
+    for k, n in check_speculative(torch, llama, llama_params, card).items():
+        launches[k] += n
     del llama, llama_params
+    torch.cuda.empty_cache()
+
+    print(f"[11] full-width qwen2-moe-a2.7b engine (bf16; {card}):",
+          flush=True)
+    for k, n in check_moe_engine(torch, card).items():
+        launches[k] += n
     torch.cuda.empty_cache()
     check_server_cli()
 

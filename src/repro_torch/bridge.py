@@ -8,15 +8,20 @@ tensors, so a leaf's path and shape are the same on both sides.
 - ``from_numpy``: the reference's tree with numpy leaves (``np.asarray``
   of each JAX array) -> the port's dict of tensors on `device`.
 - ``to_numpy``: back (bf16 leaves widen to float32, numpy has no bf16).
-- ``init_params``: fresh weights for the dense, ssm and hybrid families,
-  following the reference's init (``src/repro/models/transformer.py:39-121``
+- ``init_params``: fresh weights for the dense, moe, ssm and hybrid
+  families, following the reference's init
+  (``src/repro/models/transformer.py:39-121``, ``models/moe.py:init_moe``
   and ``models/ssm.py:init_mamba1`` / ``init_mamba2``): normal with std
   0.02, the embedding with std 1.0, norm scales one, biases zero; Mamba-1's
   conv with std 0.1, dt_proj with std dt_rank^-0.5, dt_bias -2,
   A_log = log(1..N), D one; Mamba-2's conv with std 0.1, dt_bias -2,
   A_log = log(1..NH), D and the gated norm's scale one. The hybrid tree is
   ``rounds`` (norm_scale and mamba leaves on (rounds, per_round) axes)
-  and one ``shared`` attention+MLP block with no layer axis.
+  and one ``shared`` attention+MLP block with no layer axis. A moe block
+  holds ``moe`` in place of ``mlp``: ``router`` (L, d, E), ``experts``
+  ``gate``/``up`` (L, E, d, d_expert) and ``down`` (L, E, d_expert, d),
+  and with shared experts a gated ``shared`` MLP of width
+  num_shared_experts x d_expert.
   A torch generator cannot reproduce ``jax.random``, so tests that
   compare the two frameworks bridge the reference's weights instead.
 """
@@ -52,15 +57,15 @@ def to_numpy(tree):
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
                 dtype=torch.float32):
-    """Random params of a dense, ssm or hybrid model in the reference's
-    tree layout.
+    """Random params of a dense, moe, ssm or hybrid model in the
+    reference's tree layout.
 
     Draws on the generator's device in f32 (one layer at a time, so a
     full-width 7-8B config never holds a whole f32 stack) and stores in
     `dtype` on `device`."""
-    if cfg.kind not in ("dense", "ssm", "hybrid"):
+    if cfg.kind not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"model kind {cfg.kind!r} is not ported yet (dense, ssm, "
+            f"model kind {cfg.kind!r} is not ported yet (dense, moe, ssm, "
             "hybrid)")
     dev = resolve_device(device)
     gdev = generator.device
@@ -91,11 +96,31 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
             attn.update(bq=full(0.0, *lead, h * hd),
                         bk=full(0.0, *lead, kv * hd),
                         bv=full(0.0, *lead, kv * hd))
+        out = {"attn_norm_scale": ones(*lead, d), "attn": attn,
+               "mlp_norm_scale": ones(*lead, d)}
+        if cfg.kind == "moe":
+            out["moe"] = moe(n)
+            return out
         mlp = {"up": draw((d, cfg.d_ff)), "down": draw((cfg.d_ff, d))}
         if cfg.gated_mlp:
             mlp["gate"] = draw((d, cfg.d_ff))
-        return {"attn_norm_scale": ones(*lead, d), "attn": attn,
-                "mlp_norm_scale": ones(*lead, d), "mlp": mlp}
+        out["mlp"] = mlp
+        return out
+
+    def moe(n):
+        """Router, stacked experts and shared experts, n layers deep."""
+        m = cfg.moe
+        e, f = m.num_experts, m.d_expert
+        p = {"router": stacked(n, (d, e)),
+             "experts": {"gate": stacked(n, (e, d, f)),
+                         "up": stacked(n, (e, d, f)),
+                         "down": stacked(n, (e, f, d))}}
+        if m.num_shared_experts:
+            fs = m.num_shared_experts * f
+            p["shared"] = {"up": stacked(n, (d, fs)),
+                           "down": stacked(n, (fs, d)),
+                           "gate": stacked(n, (d, fs))}
+        return p
 
     params = {
         "embed": {"table": normal((cfg.vocab_size, d), std=1.0)},

@@ -8,7 +8,9 @@ this package adds the fleet layer a production deployment needs on top:
                   or the stepped real ServingEngine).
   backends.py     Backend factories — simulator_backend (default),
                   engine_backend (the port's PyTorch model per replica,
-                  shared weights, on the model's device), mixed_backends
+                  shared weights, on the model's device),
+                  speculative_backend (the same with a shared draft
+                  model proposing and the target verifying), mixed_backends
                   (sim + engine in one fleet); selected via
                   ClusterConfig.backend_factory.
   router.py       Round-robin, join-shortest-queue, and a QoE-aware policy
@@ -39,6 +41,7 @@ from repro_torch.cluster.backends import (
     engine_backend,
     mixed_backends,
     simulator_backend,
+    speculative_backend,
 )
 from repro_torch.cluster.cluster_sim import ClusterConfig, ClusterResult, ClusterSimulator
 from repro_torch.cluster.replica import Replica, SteppableBackend
@@ -57,7 +60,7 @@ from repro_torch.cluster.router import (
 __all__ = [
     "Replica", "SteppableBackend",
     "BackendFactory", "simulator_backend", "engine_backend",
-    "mixed_backends",
+    "speculative_backend", "mixed_backends",
     "Router", "RouterConfig", "RouteDecision", "RoundRobinRouter",
     "JSQRouter", "QoEAwareRouter", "ROUTERS", "make_router",
     "marginal_qoe_gain",

@@ -9,11 +9,12 @@ port's PyTorch model through the steppable `ServingEngine` — same
 scheduler, same latency model, virtual clock — on the model's device (a
 card unless the caller asks for the CPU), so a fleet can be validated
 against actual token emission (tests/test_torch_cluster_engine.py).
+`speculative_backend(...)` builds speculative replicas of the same
+engine (a shared draft proposes, the shared target verifies; the token
+stream is an `engine_backend` replica's, in fewer steps).
 `mixed_backends(...)` round-robins factories over replica ids, giving
 heterogeneous fleets where e.g. replica 0 is a real model and the rest
 are simulated (the DiSCo device/server-split direction in ROADMAP.md).
-The reference's `speculative_backend` waits for the port's speculative
-decoding.
 
 Weights are shared across engine replicas (the factory closes over one
 `(model, params)` pair); each replica gets its own KV cache and fluid
@@ -25,7 +26,8 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
-from repro_torch.core.latency_model import LatencyModel
+from repro_torch.core.latency_model import (LatencyModel,
+                                            SpeculativeLatencyModel)
 from repro_torch.core.scheduler import Scheduler
 from repro_torch.cluster.replica import SteppableBackend
 from repro_torch.device import resolve_device
@@ -90,6 +92,60 @@ def engine_backend(
     return factory
 
 
+def speculative_backend(
+    model,
+    params,
+    draft_model,
+    draft_params,
+    *,
+    spec_k: int = 3,
+    num_slots: int = 8,
+    max_seq: int = 128,
+    capacity_tokens: Optional[int] = None,
+    clock: str = "virtual",
+    eos_id: int = -1,
+    hotpath=None,
+    cache_dtype=torch.float32,
+    device="cuda",
+) -> BackendFactory:
+    """Factory of speculative real-model replicas: each one a
+    `ServingEngine` whose rounds draft-propose `spec_k` tokens with the
+    shared `(draft_model, draft_params)` and verify them against the
+    shared target (lossless: the replica emits the token stream an
+    `engine_backend` replica would, in fewer steps).
+
+    The replica's scheduler is re-pointed at a `SpeculativeLatencyModel`
+    on its own hardware spec, so knapsack pricing, the router's
+    marginal-gain queries and admission control see the expected
+    1..k+1-token bursts. `cache_dtype` and `device` as `engine_backend`'s
+    (a card by default: without one this raises here)."""
+    dev = resolve_device(device)
+    if dev.type != model.device.type:
+        raise ValueError(f"speculative_backend device {device!r} differs "
+                         f"from the model's ({model.device})")
+
+    def factory(replica_id: int, scheduler: Scheduler,
+                lat: LatencyModel, cluster_cfg) -> SteppableBackend:
+        from repro_torch.serving.engine import ServingEngine
+        cap = capacity_tokens
+        if cap is None:
+            cap = min(cluster_cfg.kv_capacity_tokens, num_slots * max_seq)
+        scheduler.M = min(scheduler.M, cap)
+        spec_lat = SpeculativeLatencyModel(
+            model.cfg, lat.hw, draft_model.cfg, k=spec_k,
+            dtype_bytes=lat.dtype_bytes, avg_ctx=lat.avg_ctx)
+        scheduler.lat = spec_lat
+        return ServingEngine(
+            model, params, scheduler, spec_lat,
+            num_slots=num_slots, max_seq=max_seq, capacity_tokens=cap,
+            preemption_mode=cluster_cfg.preemption_mode,
+            clock=clock, eos_id=eos_id, hotpath=hotpath,
+            cache_dtype=cache_dtype, draft_model=draft_model,
+            draft_params=draft_params, spec_k=spec_k, device=dev,
+        )
+    return factory
+
+
 def mixed_backends(factories: Sequence[BackendFactory]) -> BackendFactory:
     """Replica i gets factories[i % len(factories)] — e.g. one real engine
     cross-checking a fleet of simulators."""
@@ -105,4 +161,4 @@ def mixed_backends(factories: Sequence[BackendFactory]) -> BackendFactory:
 
 
 __all__ = ["BackendFactory", "simulator_backend", "engine_backend",
-           "mixed_backends"]
+           "speculative_backend", "mixed_backends"]

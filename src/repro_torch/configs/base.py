@@ -228,6 +228,8 @@ ARCH_IDS = (
     "granite-3-2b",
     "opt-66b",
     "llama3-405b",
+    "qwen2-moe-a2.7b",
+    "phi3.5-moe-42b-a6.6b",
 )
 
 _MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}

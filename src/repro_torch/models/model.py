@@ -5,9 +5,11 @@
   cache = model.init_cache(batch=B, max_seq=S)
   logits, cache = model.prefill(params, {"tokens": t, "lengths": n}, cache)
   logits, cache = model.decode_step(params, tokens, cache)
+  logits, cache = model.verify_step(params, window, cache)   # speculative
+  proposals, cache = model.propose_step(params, tokens, cache, k)
 
-The counterpart of ``src/repro/models/model.py`` for the dense, ssm
-(Mamba-1) and hybrid (Mamba-2 + shared attention) families.
+The counterpart of ``src/repro/models/model.py`` for the dense, moe,
+ssm (Mamba-1) and hybrid (Mamba-2 + shared attention) families.
 Params are the reference's stacked tree as a dict of tensors
 (``repro_torch.bridge``). Caches are updated in place.
 """
@@ -31,10 +33,13 @@ def _argmax_ids(logits: torch.Tensor) -> torch.Tensor:
 
 class Model:
     def __init__(self, cfg: ModelConfig, *, window: Optional[int] = None,
-                 device="cuda"):
+                 moe_seq_chunk: int = 0, device="cuda"):
         tfm.check_kind(cfg)
         self.cfg = cfg
         self.window = window
+        # sequence-chunked MoE dispatch (moe.moe_apply_chunked); 0 = one
+        # capacity over the whole call, the reference's default
+        self.moe_seq_chunk = moe_seq_chunk
         self.device = resolve_device(device)
 
     # ------------------------------------------------------------------ init
@@ -74,7 +79,8 @@ class Model:
                                  device=tokens.device)
         h, _, parts = tfm.forward(params, cfg, batch, window=self.window,
                                   collect_cache=True, lengths=lengths,
-                                  return_hidden=True)
+                                  return_hidden=True,
+                                  moe_seq_chunk=self.moe_seq_chunk)
         for key in ("k", "v"):
             for i, part in enumerate(parts.get(key, ())):
                 cache[key][i, :, :s] = part
@@ -121,3 +127,15 @@ class Model:
                           device=ids.device)
         out[:j] = ids
         return out, cache, j
+
+    def verify_step(self, params, tokens, cache):
+        """Speculative verify: tokens (B, T) int32 -> (logits (B, T, V),
+        cache'), bitwise T sequential `decode_step` calls."""
+        return tfm.verify_step(params, self.cfg, tokens, cache,
+                               window=self.window)
+
+    def propose_step(self, params, tokens, cache, k: int):
+        """Draft-side greedy proposal: tokens (B,) int32 -> (proposals
+        (B, k+1) int32, cache')."""
+        return tfm.propose_step(params, self.cfg, tokens, cache, k,
+                                window=self.window)

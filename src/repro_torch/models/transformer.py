@@ -2,9 +2,15 @@
 
 Weights are stacked with a leading layer axis, as in the reference
 (``src/repro/models/transformer.py``), whose ``jax.lax.scan`` over the
-layers becomes a Python loop here. The dense, ssm (Mamba-1) and hybrid
-(Mamba-2 rounds, each followed by one weight-shared attention+MLP block)
-families are ported; the others raise.
+layers becomes a Python loop here. The dense, moe (attention plus a
+routed-expert MLP), ssm (Mamba-1) and hybrid (Mamba-2 rounds, each
+followed by one weight-shared attention+MLP block) families are ported;
+the others raise.
+
+``verify_step`` and ``propose_step`` (speculative decoding) are loops
+over ``decode_step`` with no host sync inside, as the reference's scans
+are, so a verify window is bitwise the same decode steps taken one by
+one.
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import embed_apply, mlp_apply, rms_norm, unembed
 
@@ -25,7 +32,7 @@ def layer_params(tree, i: int):
     return tree[i]
 
 
-PORTED_KINDS = ("dense", "ssm", "hybrid")
+PORTED_KINDS = ("dense", "moe", "ssm", "hybrid")
 
 
 def check_kind(cfg: ModelConfig) -> None:
@@ -37,16 +44,20 @@ def check_kind(cfg: ModelConfig) -> None:
 
 def forward(params, cfg: ModelConfig, batch, *,
             window: Optional[int] = None, collect_cache: bool = False,
-            lengths=None, return_hidden: bool = False):
+            lengths=None, return_hidden: bool = False,
+            moe_seq_chunk: int = 0):
     """Full-sequence causal forward.
 
     Returns (logits, aux) or, with collect_cache, (logits, aux, parts)
     where parts holds each layer's cache planes: {"k": [L x (B, S, KV,
-    hd)], "v": [...]} for dense, {"ssm_h": [L x (B, di, N)], "ssm_conv":
-    [L x (B, K-1, di)]} for ssm, and for hybrid k/v per round beside
-    {"ssm_h": [L_ssm x (B, NH, HD, N)], "ssm_conv": [L_ssm x (B, K-1,
-    di + 2N)]} in rounds x per_round order. With return_hidden the
-    final-normed hidden states replace the logits."""
+    hd)], "v": [...]} for dense and moe, {"ssm_h": [L x (B, di, N)],
+    "ssm_conv": [L x (B, K-1, di)]} for ssm, and for hybrid k/v per
+    round beside {"ssm_h": [L_ssm x (B, NH, HD, N)], "ssm_conv": [L_ssm x
+    (B, K-1, di + 2N)]} in rounds x per_round order. With return_hidden the
+    final-normed hidden states replace the logits. A moe model's aux is
+    the sum of its layers' load-balance losses; with `lengths` padding
+    positions are routed to no expert, and `moe_seq_chunk` routes over
+    sequence chunks (``moe.moe_apply_chunked``)."""
     check_kind(cfg)
     h = embed_apply(params["embed"], batch["tokens"])
     if cfg.kind == "ssm":
@@ -55,9 +66,11 @@ def forward(params, cfg: ModelConfig, batch, *,
         h, parts = _forward_hybrid(params, cfg, h, window, collect_cache,
                                    lengths)
     else:
-        h, parts = _forward_dense(params, cfg, h, window, lengths)
+        h, parts, aux = _forward_dense(params, cfg, h, window, lengths,
+                                       moe_seq_chunk)
     h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.kind != "moe":
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
     out = h if return_hidden else unembed(params, h)
     if collect_cache:
         return out, aux, parts
@@ -116,8 +129,25 @@ def _forward_hybrid(params, cfg, h, window, collect_cache, lengths):
     return h, {"k": ks, "v": vs, "ssm_h": hs, "ssm_conv": convs}
 
 
-def _forward_dense(params, cfg, h, window, lengths):
-    ks, vs = [], []
+def _moe_mlp(bp, cfg, h, a, valid, seq_chunk):
+    """Residual add of an attention output `a`, then the block's MoE
+    layer -> (h', aux)."""
+    h = h + a
+    x = rms_norm(h, bp["mlp_norm_scale"], cfg.norm_eps)
+    if seq_chunk:
+        y, aux = moe_lib.moe_apply_chunked(bp["moe"], x, cfg, valid=valid,
+                                           seq_chunk=seq_chunk)
+    else:
+        y, aux = moe_lib.moe_apply(bp["moe"], x, cfg, valid=valid)
+    return h + y, aux
+
+
+def _forward_dense(params, cfg, h, window, lengths, moe_seq_chunk):
+    ks, vs, auxs = [], [], []
+    valid = None
+    if lengths is not None:
+        valid = (torch.arange(h.shape[1], device=h.device)[None]
+                 < lengths[:, None])
     for i in range(cfg.num_layers):
         bp = layer_params(params["blocks"], i)
         x = rms_norm(h, bp["attn_norm_scale"], cfg.norm_eps)
@@ -125,8 +155,13 @@ def _forward_dense(params, cfg, h, window, lengths):
                                     lengths=lengths)
         ks.append(k)
         vs.append(v)
-        h = _add_mlp(bp, cfg, h, a)
-    return h, {"k": ks, "v": vs}
+        if cfg.kind == "moe":
+            h, aux = _moe_mlp(bp, cfg, h, a, valid, moe_seq_chunk)
+            auxs.append(aux)
+        else:
+            h = _add_mlp(bp, cfg, h, a)
+    aux = torch.stack(auxs).sum() if auxs else None
+    return h, {"k": ks, "v": vs}, aux
 
 
 def decode_step(params, cfg: ModelConfig, tokens, cache, *,
@@ -204,5 +239,45 @@ def _decode_dense(params, cfg, h, cache, window):
         else:
             a, _, _ = attn.attn_decode(bp["attn"], x, kc, vc, lengths, cfg,
                                        window=window)
-        h = _add_mlp(bp, cfg, h, a)
+        if cfg.kind == "moe":
+            # every slot is routed, inactive ones included (reference)
+            h, _ = _moe_mlp(bp, cfg, h[:, None], a[:, None], None, 0)
+            h = h[:, 0]
+        else:
+            h = _add_mlp(bp, cfg, h, a)
     return h
+
+
+def verify_step(params, cfg: ModelConfig, tokens, cache, *,
+                window: Optional[int] = None):
+    """Verify a T-token proposal window: tokens (B, T) int32 ->
+    (logits (B, T, V), cache') with the cache's length advanced by T.
+
+    Position j consumes tokens[:, j] against the cache as grown by the
+    positions before it: T `decode_step` calls, exactly as T sequential
+    decode iterations, so the logits are bitwise theirs (the speculative
+    engine's lossless gate rests on it). Rejected positions leave stale
+    k/v past the accepted length, which the caller rolls back by
+    `length` alone."""
+    out = []
+    for j in range(tokens.shape[1]):
+        logits, cache = decode_step(params, cfg, tokens[:, j], cache,
+                                    window=window)
+        out.append(logits)
+    return torch.stack(out, dim=1), cache
+
+
+def propose_step(params, cfg: ModelConfig, tokens, cache, k: int, *,
+                 window: Optional[int] = None):
+    """Greedy k+1 draft tokens: step 0 consumes `tokens` (B,), each later
+    step its own argmax (first max wins on ties, as jnp.argmax), with no
+    host sync. The (k+1)-th step keeps the draft cache's invariant
+    (serving/speculative.py). Returns (proposals (B, k+1) int32,
+    cache')."""
+    out = []
+    tok = tokens
+    for _ in range(k + 1):
+        logits, cache = decode_step(params, cfg, tok, cache, window=window)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        out.append(tok)
+    return torch.stack(out, dim=1), cache

@@ -18,7 +18,17 @@ What differs from the reference, and why:
 * Caches are updated in place; JAX's out-of-range rules are spelled out
   where the reference leans on them (dropped scatters for the sentinel
   slot / page, clamped gathers and writes — models/cache.py).
-* Speculative decoding (``spec_k > 0``) is not ported yet and raises.
+* Speculative decoding (``spec_k > 0``, a ``draft_model`` and its
+  params): the reference's fused round and its device ``while_loop`` of
+  rounds become plain functions on tensors — a round is the draft's k+1
+  decode steps, the window's concatenation and the target's k+1 verify
+  steps, the greedy argmax and the accepted-prefix count, all on the
+  device; a block runs exactly `s` rounds (a host int) with lengths,
+  accepted counts and the next token kept on the device, and syncs once.
+  Dispatch and sync counters are the reference's (``spec_fused``,
+  ``spec_block``, ``propose``, ``verify``, ``draft_prefill``, ``write``).
+* MoE models keep the eager exact-length prefill (capacity depends on the
+  padded token count), as in the reference.
 
 Observers (``repro_torch.obs``) attach as in the reference: ``observer``
 / ``set_observer`` install one, ``attach_observer`` composes another
@@ -52,6 +62,8 @@ from repro_torch.models.model import Model
 from repro_torch.obs.observer import EventSinkAdapter, compose
 from repro_torch.serving.kv_manager import KVSlotManager
 from repro_torch.serving.simulator import SimResult
+from repro_torch.serving.speculative import (DraftProposer,
+                                             check_speculation_compatible)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,6 +152,16 @@ def _paged_read_row(cache, table_row, slot: int, *, max_seq: int):
         "v": cache_lib.paged_gather_rows(
             cache["v"], table_row, max_seq).to("cpu", copy=True),
     }
+
+
+def _accept(window, logits, k: int):
+    """Greedy ids of a verified window and each row's accepted-prefix
+    length: window (B, k+1), logits (B, k+1, V) -> (greedy (B, k+1),
+    accepted (B,)) int32, on the device."""
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+    match = (window[:, 1:] == greedy[:, :k]).to(torch.int32)
+    accepted = torch.cumprod(match, dim=1).sum(dim=1).to(torch.int32)
+    return greedy, accepted
 
 
 class BucketedPrefill:
@@ -277,6 +299,8 @@ class ServingEngine:
         clock: str = "virtual",
         eos_id: int = -1,
         cache_dtype=torch.float32,
+        draft_model: Optional[Model] = None,
+        draft_params=None,
         spec_k: int = 0,
         hotpath: Optional[HotpathConfig] = None,
         prefill_chunk: int = 0,
@@ -287,9 +311,6 @@ class ServingEngine:
         if resolve_device(device).type != model.device.type:
             raise ValueError(f"engine device {device!r} differs from the "
                              f"model's ({model.device})")
-        if spec_k:
-            raise NotImplementedError(
-                "speculative decoding (spec_k > 0) is not ported yet")
         self.model = model
         self.params = params
         self.sched = scheduler
@@ -305,18 +326,46 @@ class ServingEngine:
         self._num_slots = num_slots
         self._capacity_tokens = capacity_tokens
         self._rollback_ok = cache_lib.supports_length_rollback(model.cfg)
-        self.spec_k = 0
-        self._cache_seq = max_seq
+
+        # ---- speculative decoding (optional) ----------------------------
+        self.spec_k = int(spec_k)
+        # a verify window writes up to k+1 positions past a slot's
+        # committed context: the physical cache is that much deeper so the
+        # writes are never clamped onto position max_seq-1; max_seq stays
+        # the logical per-request bound
+        self._cache_seq = max_seq + (self.spec_k + 1 if self.spec_k else 0)
+        if self.spec_k:
+            if draft_model is None or draft_params is None:
+                raise ValueError(
+                    "spec_k > 0 requires draft_model/draft_params")
+            check_speculation_compatible(model, draft_model)
+            self.draft = DraftProposer(
+                draft_model, draft_params, num_slots=num_slots,
+                max_seq=self._cache_seq, cache_dtype=cache_dtype,
+                bucketed=(BucketedPrefill(
+                    draft_model, self._cache_seq, cache_dtype,
+                    max_seq=max_seq, bucket_min=self.hotpath.bucket_min,
+                ) if self.hotpath.prefill_buckets else None))
+            self._verify = model.verify_step
+            self._spec_fused = self._make_spec_fused()
+            self._spec_block = self._make_spec_block()
+        else:
+            self.draft = None
 
         # ---- physical paging: a real device page pool -------------------
         paged = page_size is not None and 0 < int(page_size) < max_seq
         if physical_pages is None:
-            physical_pages = paged and model.supports_physical_paging()
+            physical_pages = (paged and not self.spec_k
+                              and model.supports_physical_paging())
         elif physical_pages:
             if not paged:
                 raise ValueError(
                     "physical_pages=True requires a paged engine "
                     "(0 < page_size < max_seq)")
+            if self.spec_k:
+                raise ValueError(
+                    "physical_pages=True is incompatible with speculative "
+                    "decoding (verify windows write past the block table)")
             if not model.supports_physical_paging():
                 raise ValueError(
                     f"model kind {model.cfg.kind!r} does not support a "
@@ -344,13 +393,15 @@ class ServingEngine:
         self._prefill = BucketedPrefill(
             model, self._cache_seq, cache_dtype, max_seq=max_seq,
             bucket_min=self.hotpath.bucket_min)
-        # MoE capacity depends on the padded token count, so MoE keeps the
-        # eager exact-length path (no MoE model is ported yet)
+        # MoE capacity depends on the padded token count (and on the rows
+        # batched beside a prompt), so MoE keeps the eager exact-length path
         self._prefill_bucketable = model.cfg.kind != "moe"
         # ---- chunked prefill + paged KV accounting ----------------------
         self.prefill_chunk = int(prefill_chunk)
         self._page_size = page_size
         if self.prefill_chunk:
+            if self.spec_k:
+                raise ValueError("chunked prefill requires spec_k=0")
             if not (self.hotpath.prefill_buckets
                     and self._prefill_bucketable):
                 raise ValueError(
@@ -369,11 +420,16 @@ class ServingEngine:
         if getattr(self, "kv", None) is None:
             self.kv = KVSlotManager(self._num_slots, self.max_seq,
                                     self._capacity_tokens,
+                                    burst_reserve=(self.spec_k + 1
+                                                   if self.spec_k else 0),
                                     page_size=self._page_size)
         else:
             self.kv.reset()
         self.sched.reset()
         self.fluid = FluidQoE()
+        self.spec_steps = 0          # verify rounds per slot
+        self.spec_proposed = 0       # draft tokens proposed (k each)
+        self.spec_accepted = 0       # draft tokens accepted by the target
         if hasattr(self.lat, "reset"):
             self.lat.reset()
         self.now = 0.0
@@ -437,9 +493,11 @@ class ServingEngine:
         self.obs = compose(self._observer, sink_obs)
         self.sched.obs = self.obs
         obs = self.obs
-        self._prefill.on_compile = (
-            (lambda key: obs.jit_compile(self.now, key))
-            if obs is not None else None)
+        cb = ((lambda key: obs.jit_compile(self.now, key))
+              if obs is not None else None)
+        self._prefill.on_compile = cb
+        if self.spec_k and self.draft.bucketed is not None:
+            self.draft.bucketed.on_compile = cb
 
     def _sync(self, n: int = 1) -> None:
         if n:
@@ -562,6 +620,8 @@ class ServingEngine:
 
     def hotpath_stats(self) -> dict:
         shapes = set(self._prefill.shapes_seen)
+        if self.spec_k and self.draft.bucketed is not None:
+            shapes |= self.draft.bucketed.shapes_seen
         return {
             "host_syncs": self.host_syncs,
             "dispatches": self.dispatches,
@@ -686,6 +746,15 @@ class ServingEngine:
         self._sync(syncs)
         self._dispatch("prefill", n_groups)
         self._dispatch("write", n_groups)
+        if self.spec_k:
+            # draft invariant committed[:-1]: the full staged context for
+            # fresh prefills (their first token was committed at stage
+            # time), minus the trailing token on a recompute resume
+            n_draft = self.draft.prefill_batch(
+                slots, [rec.toks if rec.emit_t is not None else rec.toks[:-1]
+                        for rec in staged])
+            self._dispatch("draft_prefill", n_draft)
+            self._dispatch("write", n_draft)
         obs = self.obs
         for i, rec in enumerate(staged):
             if rec.emit_t is not None:
@@ -732,6 +801,13 @@ class ServingEngine:
             self.cache = _write_slot(self.cache, one, slot)
         self._dispatch("write")
         self.slot_req[slot] = r
+        if self.spec_k:
+            # the draft holds committed[:-1]: a fresh request's first token
+            # is emitted just below; a recompute resume drops its last
+            # committed token, the next round's input
+            self.draft.prefill(slot, toks if r.generated == 0 else toks[:-1])
+            self._dispatch("draft_prefill")
+            self._dispatch("write")
         self._tick(self.lat.prefill_latency(len(toks)))
         if self.obs is not None:
             self.obs.prefill(r, self.now, len(toks))
@@ -754,6 +830,34 @@ class ServingEngine:
                 or (self.eos_id >= 0 and tok == self.eos_id))
         if done:
             self._finish(r)
+
+    def _emit_burst(self, r: Request, toks) -> int:
+        """Commit a verify round's accepted tokens, all at self.now (one
+        burst), truncated at output_len or EOS where one-token steps would
+        have stopped. Returns the number emitted."""
+        emitted = []
+        for tok in toks:
+            if r.generated >= r.output_len:
+                break
+            tok = int(tok)
+            emitted.append(tok)
+            r.output_tokens.append(tok)
+            r.generated += 1
+            r.emit_times.append(self.now)
+            if self.eos_id >= 0 and tok == self.eos_id:
+                break
+        if emitted:
+            self.fluid.emit(r.fluid_idx, self.now, len(emitted))
+            self.kv.grow(r, len(emitted))
+            self.total_tokens += len(emitted)
+            if self.obs is not None:
+                self.obs.emit(r, self.now, len(emitted))
+        done = (r.generated >= r.output_len
+                or (self.eos_id >= 0 and emitted
+                    and emitted[-1] == self.eos_id))
+        if done:
+            self._finish(r)
+        return len(emitted)
 
     def _finish(self, r: Request) -> None:
         r.state = ReqState.FINISHED
@@ -785,7 +889,8 @@ class ServingEngine:
             else:
                 host_slice = _read_slot(self.cache, slot)
             self._sync()
-            self.kv.swap_out(r, host_slice)
+            draft_slice = self.draft.park(slot) if self.spec_k else None
+            self.kv.swap_out(r, host_slice, draft_slice)
             r.state = ReqState.SWAPPED
             self._tick(self.lat.swap_latency(
                 r.prefill_cursor or r.context_len))
@@ -801,6 +906,7 @@ class ServingEngine:
 
     def _swap_in(self, r: Request) -> None:
         host_slice = self.kv.swap_in(r)
+        draft_slice = self.kv.swap_in_draft(r)
         slot = self.kv.allocate(r, tokens=(r.prefill_cursor or None))
         if self.physical_pages:
             self._refresh_block_tables()
@@ -815,11 +921,238 @@ class ServingEngine:
         else:
             self.cache = _write_slot(self.cache, host_slice, slot)
         self._dispatch("write")
+        if draft_slice is not None:
+            self.draft.restore(slot, draft_slice)
+            self._dispatch("write")
         self.slot_req[slot] = r
         r.state = ReqState.RUNNING
         self._tick(self.lat.swap_latency(r.prefill_cursor or r.context_len))
         if self.obs is not None:
             self.obs.swap_in(r, self.now)
+
+    # ------------------------------------------------------- speculative
+    def _make_spec_fused(self):
+        """One speculative round on the device: draft propose, window
+        concat, target verify, greedy argmax and the accepted-prefix
+        length (cumprod of matches), so `_speculative_iteration` syncs
+        once on three small int tensors instead of (slots, k+1, vocab)
+        logits."""
+        model, k = self.model, self.spec_k
+        dmodel = self.draft.model
+
+        def fn(params, dparams, tokens, target_cache, draft_cache):
+            props, draft_cache = dmodel.propose_step(dparams, tokens,
+                                                     draft_cache, k)
+            window = torch.cat([tokens[:, None], props[:, :k]], dim=1)
+            logits, target_cache = model.verify_step(params, window,
+                                                     target_cache)
+            greedy, accepted = _accept(window, logits, k)
+            return window, greedy, accepted, target_cache, draft_cache
+
+        return fn
+
+    def _make_spec_block(self):
+        """`_make_spec_fused`'s round, run exactly `s` times (s a host int;
+        the reference's device while_loop). Each round re-pins both caches'
+        length gates as the host does between single rounds — the target
+        holds the committed context, the draft committed[:-1] — then
+        advances the committed length by accepted + 1 and feeds the
+        correction/bonus token to the next round's draft. Lengths, counts
+        and tokens stay on the device; returns the per-round windows,
+        greedy ids and accepted counts, (s, B, k+1) / (s, B)."""
+        round_ = self._make_spec_fused()
+
+        def fn(params, dparams, tokens, lengths, tcache, dcache, s):
+            tok, ln = tokens, lengths
+            ws, gs, accs = [], [], []
+            for _ in range(s):
+                dcache = dict(dcache, length=torch.clamp(ln - 1, min=0))
+                tcache = dict(tcache, length=ln)
+                window, greedy, accepted, tcache, dcache = round_(
+                    params, dparams, tok, tcache, dcache)
+                tok = greedy.gather(1, accepted[:, None].long())[:, 0]
+                ln = ln + accepted + 1
+                ws.append(window)
+                gs.append(greedy)
+                accs.append(accepted)
+            return (torch.stack(ws), torch.stack(gs), torch.stack(accs),
+                    tcache, dcache)
+
+        return fn
+
+    def _spec_block_plan(self, active) -> int:
+        """Rounds of speculative verify that may run unsupervised in one
+        dispatch — the decode `_multi_step_plan` adapted to an
+        acceptance-dependent clock (reference docstring): the idle_steps
+        certificate is spent in tokens (a round commits up to k+1), the
+        block is sized so neither output_len nor max_seq can truncate it,
+        and the latency trigger is re-checked at the acceptance floor.
+        Returns 1 when any condition fails."""
+        cap = self.hotpath.multi_step
+        if cap <= 1 or not self.hotpath.persistent:
+            return 1
+        if not self.hotpath.fused_sampling:
+            return 1
+        if self.clock != "virtual" and not self.hotpath.wall_multi_step:
+            return 1
+        if len(active) != len(self.live):
+            return 1
+        if not self._rollback_ok:
+            return 1
+        k1 = self.spec_k + 1
+        s_max = min(
+            cap,
+            min((r.output_len - r.generated) // k1 for r in active.values()),
+            min((self.max_seq - r.context_len) // k1
+                for r in active.values()))
+        if s_max < 2:
+            return 1
+        stiffest = max((r.spec.tds for r in active.values()), default=0.0)
+        if stiffest > 0 and \
+                self.lat.iter_latency(len(self.live)) > 1.0 / stiffest:
+            return 1
+        s_tok = self.sched.idle_steps(self.live, s_max * k1 - 1) + 1
+        s_max = min(s_max, s_tok // k1)
+        return s_max if s_max >= 2 else 1
+
+    def _commit_round(self, items, window, greedy, accepted) -> int:
+        """Commit one round's bursts, slot by slot in `items` order, with
+        the reference's acceptance bookkeeping; returns the accepted
+        total."""
+        k = self.spec_k
+        step_accepted = 0
+        for slot, r in items:
+            d, g = window[slot, 1:], greedy[slot]
+            a = int(accepted[slot])
+            # logical max_seq bound: committed context never exceeds what
+            # a baseline engine could hold
+            m_safe = max(1, self.max_seq - r.context_len)
+            toks = (list(d[:a]) + [int(g[a])])[:m_safe]
+            self.spec_steps += 1
+            self.spec_proposed += k
+            self.spec_accepted += a
+            step_accepted += a
+            if hasattr(self.lat, "observe_acceptance"):
+                self.lat.observe_acceptance(a)
+            self._emit_burst(r, toks)
+        return step_accepted
+
+    def _speculative_block(self, active, lengths, tokens, s: int,
+                           until: Optional[float]) -> int:
+        """Run `s` speculative rounds in one dispatch and replay the
+        acceptance-dependent clock on the host off one sync: round r's
+        tick is priced at the context the ledger reached after round
+        r-1's commits, as single rounds do. Returns rounds committed (< s
+        when an EOS landed, a pending arrival came due, or the driver's
+        `until` was crossed: the tail is discarded and both length gates
+        roll the caches back)."""
+        k = self.spec_k
+        dev = self.model.device
+        # the block pins both caches' lengths itself, round by round
+        W, G, A, self.cache, self.draft.cache = self._spec_block(
+            self.params, self.draft.params, torch.as_tensor(tokens).to(dev),
+            torch.as_tensor(lengths).to(dev), self.cache, self.draft.cache,
+            s)
+        self._dispatch("spec_block")
+        n_w = W.numel()
+        host = torch.cat([W.reshape(-1), G.reshape(-1),
+                          A.reshape(-1)]).cpu().numpy()   # ONE sync
+        W = host[:n_w].reshape(W.shape)
+        G = host[n_w:2 * n_w].reshape(G.shape)
+        A = host[2 * n_w:].reshape(A.shape)
+        self._sync()
+        self.multi_step_blocks += 1
+        self.persistent_blocks += 1
+        items = list(active.items())
+        b = len(items)
+        committed = 0
+        for rnd in range(s):
+            if rnd:
+                self.batch_sizes.append(b)
+            ctx = sum(r.context_len for _slot, r in items)
+            self._tick(self.lat.iter_latency(b, ctx))
+            step_accepted = self._commit_round(items, W[rnd], G[rnd], A[rnd])
+            finished = any(not r.is_live for _slot, r in items)
+            if self.obs is not None:
+                self.obs.spec(self.now, k * b, step_accepted)
+            committed += 1
+            if committed < s:
+                if finished:
+                    break
+                if (self._pending_pos < len(self._pending)
+                        and self._pending[self._pending_pos].arrival
+                        <= self.now):
+                    break
+                if until is not None and not (self.now < until):
+                    break
+        self.multi_step_iters += committed
+        self.persistent_iters += s
+        self.sched.skip_iterations(committed - 1)
+        if self.obs is not None:
+            self.obs.multi_step(self.now, s, committed)
+            self.obs.persistent_loop(self.now, s, s)
+        return committed
+
+    def _speculative_iteration(self, active, lengths, tokens,
+                               total_ctx: int) -> None:
+        """Draft-propose k tokens per running slot, verify the window in
+        the target, commit the longest greedy-matching prefix plus the
+        correction/bonus token (lossless; 1..k+1 tokens per round)."""
+        k = self.spec_k
+        # the draft holds committed[:-1]: its next write goes one position
+        # below the target's
+        draft_lengths = np.maximum(lengths - 1, 0).astype(np.int32)
+        dev = self.model.device
+        if self.hotpath.fused_sampling:
+            self.draft.cache = cache_lib.with_lengths(self.draft.cache,
+                                                      draft_lengths)
+            window, greedy, accepted, self.cache, self.draft.cache = \
+                self._spec_fused(self.params, self.draft.params,
+                                 torch.as_tensor(tokens).to(dev),
+                                 self.cache, self.draft.cache)
+            self._dispatch("spec_fused")
+            self._tick(self.lat.iter_latency(len(active), total_ctx))
+            t = window.shape[1]
+            host = torch.cat([window, greedy, accepted[:, None]],
+                             dim=1).cpu().numpy()       # ONE sync
+            window, greedy = host[:, :t], host[:, t:2 * t]
+            accepted = host[:, 2 * t]
+            self._sync()
+        else:
+            proposals = self.draft.propose(tokens, draft_lengths, k)
+            self._dispatch("propose")
+            self._sync()
+            window = np.concatenate([tokens[:, None], proposals], axis=1)
+            logits, self.cache = self._verify(
+                self.params, torch.as_tensor(window).to(dev), self.cache)
+            self._dispatch("verify")
+            # one round's cost: k+1 draft decodes and the verify (the
+            # SpeculativeLatencyModel's iter_latency)
+            self._tick(self.lat.iter_latency(len(active), total_ctx))
+            greedy = torch.argmax(logits, dim=-1).cpu().numpy()
+            self._sync()
+            accepted = np.zeros(len(window), np.int64)
+            for s in active:
+                d, g = window[s, 1:], greedy[s]
+                a = 0
+                while a < k and d[a] == g[a]:
+                    a += 1
+                accepted[s] = a
+        step_accepted = self._commit_round(list(active.items()), window,
+                                           greedy, accepted)
+        if self.obs is not None:
+            self.obs.spec(self.now, k * len(active), step_accepted)
+
+    def spec_stats(self) -> dict:
+        """Acceptance-side counters (speculative engines only)."""
+        return {
+            "spec_k": self.spec_k,
+            "spec_steps": self.spec_steps,
+            "proposed": self.spec_proposed,
+            "accepted": self.spec_accepted,
+            "acceptance_rate": (self.spec_accepted / self.spec_proposed
+                                if self.spec_proposed else 0.0),
+        }
 
     # ------------------------------------------------------ multi-step decode
     def _multi_step_plan(self, active, total_ctx: int,
@@ -828,7 +1161,7 @@ class ServingEngine:
         provably identical to single-stepping (reference docstring).
         Returns 1 whenever any condition fails."""
         cap = self.hotpath.multi_step
-        if cap <= 1:
+        if cap <= 1 or self.spec_k:
             return 1
         if self.clock != "virtual" and not (
                 self.hotpath.wall_multi_step and self._rollback_ok):
@@ -1016,42 +1349,53 @@ class ServingEngine:
                 tokens[s] = r.output_tokens[-1] if r.output_tokens else 0
             self.cache = cache_lib.with_lengths(self.cache, lengths)
             total_ctx = int(lengths.sum())
-            j = self._multi_step_plan(active, total_ctx, until)
-            if self.physical_pages:
-                # pre-reserve every page the block will write (step s
-                # writes position ctx+s), then pin the tables
-                for _s, r in active.items():
-                    self.kv.ensure_pages(
-                        r, min(r.context_len + j, self._cache_seq))
-                self._refresh_block_tables()
-            if j > 1:
-                if self.hotpath.persistent:
-                    committed_iters = self._persistent_decode(
-                        active, tokens, total_ctx, j)
+            if self.spec_k:
+                s_rounds = self._spec_block_plan(active)
+                if s_rounds > 1:
+                    committed_iters = self._speculative_block(
+                        active, lengths, tokens, s_rounds, until)
                 else:
-                    committed_iters = self._multi_step_decode(
-                        active, tokens, total_ctx, j)
-                if self.physical_pages:
-                    for r in list(active.values()):
-                        if r.is_live:
-                            self.kv.trim_pages(r)
+                    self._speculative_iteration(active, lengths, tokens,
+                                                total_ctx)
             else:
-                dev_tokens = torch.as_tensor(tokens).to(self.model.device)
-                if self.hotpath.fused_sampling:
-                    ids, self.cache = self._decode_tok(
-                        self.params, dev_tokens, self.cache)
-                    self._dispatch("decode")
-                    self._tick(self.lat.iter_latency(len(active), total_ctx))
-                    nxt = ids.cpu().numpy()
+                j = self._multi_step_plan(active, total_ctx, until)
+                if self.physical_pages:
+                    # pre-reserve every page the block will write (step s
+                    # writes position ctx+s), then pin the tables
+                    for _s, r in active.items():
+                        self.kv.ensure_pages(
+                            r, min(r.context_len + j, self._cache_seq))
+                    self._refresh_block_tables()
+                if j > 1:
+                    if self.hotpath.persistent:
+                        committed_iters = self._persistent_decode(
+                            active, tokens, total_ctx, j)
+                    else:
+                        committed_iters = self._multi_step_decode(
+                            active, tokens, total_ctx, j)
+                    if self.physical_pages:
+                        for r in list(active.values()):
+                            if r.is_live:
+                                self.kv.trim_pages(r)
                 else:
-                    logits, self.cache = self._decode(
-                        self.params, dev_tokens, self.cache)
-                    self._dispatch("decode")
-                    self._tick(self.lat.iter_latency(len(active), total_ctx))
-                    nxt = torch.argmax(logits, dim=-1).cpu().numpy()
-                self._sync()
-                for s, r in list(active.items()):
-                    self._emit(r, int(nxt[s]))
+                    dev_tokens = torch.as_tensor(tokens).to(self.model.device)
+                    if self.hotpath.fused_sampling:
+                        ids, self.cache = self._decode_tok(
+                            self.params, dev_tokens, self.cache)
+                        self._dispatch("decode")
+                        self._tick(self.lat.iter_latency(len(active),
+                                                         total_ctx))
+                        nxt = ids.cpu().numpy()
+                    else:
+                        logits, self.cache = self._decode(
+                            self.params, dev_tokens, self.cache)
+                        self._dispatch("decode")
+                        self._tick(self.lat.iter_latency(len(active),
+                                                         total_ctx))
+                        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+                    self._sync()
+                    for s, r in list(active.items()):
+                        self._emit(r, int(nxt[s]))
         else:
             self._tick(self.lat.hw.overhead)
 

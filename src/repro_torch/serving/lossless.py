@@ -86,18 +86,70 @@ def exact_margin(model, params, prompt_tokens, prefix) -> float:
     return float(top2[1] - top2[0])
 
 
+def engine_margin(engine, prompt_tokens, prefix) -> float:
+    """Top-2 logit margin at the position that emitted token `len(prefix)`,
+    replayed along `engine`'s own layout (`_engine_logits`)."""
+    row = _engine_logits(engine, prompt_tokens, prefix).double().numpy()
+    top2 = np.partition(row, -2)[-2:]
+    return float(top2[1] - top2[0])
+
+
+def _engine_logits(engine, prompt_tokens, prefix) -> torch.Tensor:
+    """The logits (vocab,) on the host at the position that emitted token
+    `len(prefix)`, replayed along `engine`'s own layout at batch 1: the
+    prompt prefilled as the engine prefills it (padded to its length
+    bucket, the padding's k/v left in the cache; at its exact length on
+    the eager path), then one decode step per committed token with the
+    cache's length gate at the request's context length, as the engine's
+    decode pins it. The first emitted token's k/v is never written there
+    (its decode writes at len(prompt) + 1), so every decode attends what
+    the prefill left at position len(prompt), which the exact-length path
+    never sees.
+
+    The referee for flips between two engines that group the same
+    prompts into prefills of other shapes (a speculative engine against
+    its baseline): where a model's greedy tokens depend on that position,
+    as a random-weight model's do at full width, `exact_margin` measures
+    another function. Replays a request that ran without preemption (a
+    recompute re-prefills prompt + generated)."""
+    from repro_torch.models import cache as cache_lib
+    model, dev = engine.model, engine.model.device
+    toks = np.asarray(prompt_tokens, np.int32)
+    n = int(toks.shape[0])
+    if engine.hotpath.prefill_buckets and engine._prefill_bucketable:
+        padded = np.zeros((1, engine._prefill.bucket(n)), np.int32)
+        padded[0, :n] = toks
+        batch = {"tokens": torch.as_tensor(padded).to(dev),
+                 "lengths": torch.as_tensor([n], dtype=torch.int32).to(dev)}
+    else:
+        batch = {"tokens": torch.as_tensor(toks[None]).to(dev)}
+    cache = model.init_cache(1, engine._cache_seq,
+                             dtype=engine._prefill.cache_dtype)
+    logits, cache = model.prefill(engine.params, batch, cache)
+    for i, tok in enumerate(prefix):
+        cache = cache_lib.with_lengths(cache, [n + 1 + i])
+        logits, cache = model.decode_step(
+            engine.params, torch.as_tensor([int(tok)], dtype=torch.int32)
+            .to(dev), cache)
+    return logits[0].cpu()
+
+
 def classify_flip(margin: float, tol: float = FLIP_TOL) -> str:
     """'documented_ulp_flip' when the exact path was indifferent at
     float-noise scale; 'real_divergence' otherwise."""
     return "documented_ulp_flip" if abs(margin) <= tol else "real_divergence"
 
 
-def audit_flips(model, params, out_a, out_b,
-                tol: float = FLIP_TOL) -> List[dict]:
+def audit_flips(model, params, out_a, out_b, tol: float = FLIP_TOL,
+                engine=None) -> List[dict]:
     """Compare two runs of the same workload request-by-request and
     classify every token-id mismatch. Returns one record per diverging
     request: rid, first diverging position, the exact-path top-2 margin
-    there, and the classification. An empty list means token-identical."""
+    there, and the classification. An empty list means token-identical.
+
+    With `engine`, the margin that classifies is `engine_margin` along
+    that engine's layout (`model` and `params` must be the engine's); the
+    exact-path margin stays in the record as `exact_margin`."""
     flips = []
     by_rid = {r.rid: r for r in out_b}
     for ra in out_a:
@@ -109,12 +161,13 @@ def audit_flips(model, params, out_a, out_b,
             continue
         prefix = ra.output_tokens[:pos]
         margin = exact_margin(model, params, ra.prompt_tokens, prefix)
-        flips.append({
-            "rid": int(ra.rid),
-            "position": int(pos),
-            "margin": margin,
-            "classification": classify_flip(margin, tol),
-        })
+        rec = {"rid": int(ra.rid), "position": int(pos)}
+        if engine is not None:
+            rec["exact_margin"] = margin
+            margin = engine_margin(engine, ra.prompt_tokens, prefix)
+        rec["margin"] = margin
+        rec["classification"] = classify_flip(margin, tol)
+        flips.append(rec)
     return flips
 
 

@@ -145,6 +145,71 @@ def test_client_over_engine_bit_identical_and_matches_reference():
     assert client.avg_qoe() == jclient.avg_qoe()
 
 
+def _spec_trace(make, spec, vocab):
+    """The reference's speculative client trace (tests/test_api.py)."""
+    rng = np.random.default_rng(5)
+    out = []
+    for i in range(8):
+        plen = int(rng.integers(8, 24))
+        out.append(make(rid=i, arrival=i * 0.02, prompt_len=plen,
+                        output_len=int(rng.integers(8, 16)),
+                        spec=spec(ttft=1.0, tds=4.8),
+                        prompt_tokens=rng.integers(0, vocab, plen)))
+    return out
+
+
+def _spec_engines(k=2):
+    """A speculative engine in each package (the draft is the target
+    itself, as the reference's spec_k case), 3 slots, capacity 160."""
+    from repro.core import SpeculativeLatencyModel as JSpecLat
+    from repro_torch.core import SpeculativeLatencyModel
+    cfg, jm, jp, tm, tp = _models("llama3-8b")
+
+    def port():
+        lat = SpeculativeLatencyModel(tm.cfg, TPU_V5E, tm.cfg, k=k)
+        return ServingEngine(tm, tp, make_scheduler("andes", 160, lat), lat,
+                             num_slots=3, max_seq=64, capacity_tokens=160,
+                             draft_model=tm, draft_params=tp, spec_k=k,
+                             device="cpu")
+
+    def ref():
+        lat = JSpecLat(cfg, J_TPU_V5E, cfg, k=k)
+        return JEngine(jm, jp, j_make_scheduler("andes", 160, lat), lat,
+                       num_slots=3, max_seq=64, capacity_tokens=160,
+                       draft_model=jm, draft_params=jp, spec_k=k)
+    return port, ref
+
+
+def test_client_over_spec_engine_bit_identical_and_matches_reference():
+    """The client over a speculative engine (spec_k=2): bit for bit the
+    engine driven by run(), and the reference client's timing over the
+    reference's speculative engine."""
+    cfg = _models("llama3-8b")[0]
+    port, ref = _spec_engines()
+    eng = port()
+    direct = eng.run(_spec_trace(Request, QoESpec, cfg.vocab_size))
+    assert eng.spec_stats()["accepted"] > 0
+    client = ServingClient(port())
+    handles = [client.submit_request(r)
+               for r in _spec_trace(Request, QoESpec, cfg.vocab_size)]
+    client.drain()
+    d = {r.rid: r for r in direct}
+    for h in handles:
+        r = d[h.rid]
+        assert h.request.emit_times == r.emit_times
+        assert h.tokens() == r.output_tokens
+        assert h.qoe() == r.final_qoe()
+    jclient = JClient(ref())
+    jhandles = [jclient.submit_request(r)
+                for r in _spec_trace(JRequest, JSpec, cfg.vocab_size)]
+    jclient.drain()
+    assert timing_fingerprint([h.request for h in handles]) == \
+        j_timing([h.request for h in jhandles])
+    assert [h.tokens() for h in handles] == \
+        [[int(t) for t in h.tokens()] for h in jhandles]
+    assert client.avg_qoe() == jclient.avg_qoe()
+
+
 def test_client_submit_prompt_and_callbacks():
     """submit() with a token prompt and options, lifecycle callbacks fired
     once per event, and a client cancel of a live stream."""

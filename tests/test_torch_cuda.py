@@ -75,7 +75,12 @@ def _paginate(k, v, lengths, page, seed=0):
 
 DECODE_SHAPES = [(3, 300, 8, 2, 64), (2, 64, 4, 4, 32),
                  (8, 1024, 32, 8, 128), (2, 512, 16, 1, 32),
-                 (3, 256, 16, 4, 80), (1, 1024, 32, 8, 128)]
+                 (3, 256, 16, 4, 80), (1, 1024, 32, 8, 128),
+                 # qwen2-moe-a2.7b: H = KV = 16 (G = 1) at hd 128
+                 (8, 1024, 16, 16, 128),
+                 # a speculative engine's caches, max_seq + k + 1 deep: the
+                 # llama3-8b target and the 4/2-head hd-32 foreign draft
+                 (8, 1028, 32, 8, 128), (8, 1028, 4, 2, 32)]
 
 
 @pytest.mark.parametrize("shape", DECODE_SHAPES)
@@ -231,8 +236,11 @@ def test_decode_from_another_thread(dev):
     assert set(tcuda._scratch) - keys == {out["side_key"]}
 
 
-def test_paged_kernel_window_and_main_shape(dev):
-    b, s, h, kv, hd, page = 8, 1024, 32, 8, 128, 16
+@pytest.mark.parametrize("h,kv", [(32, 8), (16, 16)])
+def test_paged_kernel_window_and_main_shape(dev, h, kv):
+    """The main paths' paged shapes: llama3-8b (32/8 heads) and
+    qwen2-moe-a2.7b (16/16), page 16 over a 1024-deep pool."""
+    b, s, hd, page = 8, 1024, 128, 16
     q = _rand(10, (b, h, hd), torch.bfloat16, dev)
     k = _rand(11, (b, s, kv, hd), torch.bfloat16, dev)
     v = _rand(12, (b, s, kv, hd), torch.bfloat16, dev)
@@ -279,6 +287,11 @@ FLASH_CASES = [
     (2, 130, 300, 8, 4, 128, True, [300, 257], [170, 100], 64),
     # the engine's usual prefill group: one row of a 512 bucket
     (1, 512, 512, 32, 8, 128, True, [389], None, None),
+    # qwen2-moe-a2.7b's eager exact-length prefill: G = 1, no padding
+    (1, 389, 389, 16, 16, 128, True, None, None, None),
+    (1, 64, 64, 16, 16, 128, True, None, None, None),
+    # the foreign draft's bucketed prefill: 4/2 heads of hd 32
+    (1, 512, 512, 4, 2, 32, True, [389], None, None),
 ]
 
 
@@ -623,6 +636,107 @@ def test_ssm_engine_on_card_matches_plain_path(dev):
             engs.append(eng)
         assert engs[1].preemptions > 0
         assert tcuda.launches["selective_scan"] > n0
+        assert timing_fingerprint(outs[0]) == timing_fingerprint(outs[1])
+        flips = audit_flips(cpu, params, outs[0], outs[1])
+        assert all_flips_documented(flips), flips
+
+
+def _smoke_trace(cfg):
+    """The trace of tests/test_torch_engine.py."""
+    from repro_torch.core import QoESpec
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(0)
+    out = []
+    for i in range(12):
+        n = int(rng.integers(5, 30))
+        out.append(Request(
+            rid=i, arrival=i * 0.01, prompt_len=n, output_len=14,
+            spec=QoESpec(ttft=1.0, tds=4.8),
+            prompt_tokens=rng.integers(0, cfg.vocab_size, n)))
+    return out
+
+
+def _perturbed(params, seed=9):
+    """params + 1e-3 * randn from a seeded generator, leaf by leaf."""
+    gen = torch.Generator().manual_seed(seed)
+    if isinstance(params, dict):
+        return {k: _perturbed(v, seed) if isinstance(v, dict) else
+                v + 1e-3 * torch.randn(v.shape, generator=gen)
+                for k, v in params.items()}
+    return params
+
+
+def test_spec_engine_on_card_matches_plain_path(dev):
+    """The llama3 smoke speculative engine (k = 2, swap preemption) on
+    the card against the same engine on the CPU, f32, with the exact and
+    a perturbed draft: identical virtual timing and acceptance, tokens
+    identical up to documented near-ties; the exact draft accepts as much
+    on both devices."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import (TPU_V5E, SchedulerConfig,
+                                  SpeculativeLatencyModel, make_scheduler)
+    from repro_torch.models import Model
+    from repro_torch.serving import (ServingEngine, all_flips_documented,
+                                     audit_flips, timing_fingerprint)
+    cfg = get_smoke_config("llama3-8b")
+    cpu = Model(cfg, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    gpu = Model(cfg, device=dev)
+    for draft in ("exact", "perturbed"):
+        dparams = params if draft == "exact" else _perturbed(params)
+        outs, engs = [], []
+        n0 = tcuda.launches["decode_attention"]
+        for m, p, dp in ((cpu, params, dparams),
+                         (gpu, _to(params, dev), _to(dparams, dev))):
+            lat = SpeculativeLatencyModel(cfg, TPU_V5E, cfg, k=2)
+            sched = make_scheduler("andes", 100, lat,
+                                   SchedulerConfig(delta_t=2.0))
+            eng = ServingEngine(m, p, sched, lat, num_slots=4, max_seq=64,
+                                capacity_tokens=100, draft_model=m,
+                                draft_params=dp, spec_k=2, device=m.device)
+            outs.append(eng.run(_smoke_trace(cfg), max_iterations=4000))
+            engs.append(eng)
+        assert engs[1].preemptions > 0
+        assert tcuda.launches["decode_attention"] > n0
+        flips = audit_flips(cpu, params, outs[0], outs[1])
+        assert all_flips_documented(flips), flips
+        if not flips:
+            assert timing_fingerprint(outs[0]) == \
+                timing_fingerprint(outs[1])
+            assert engs[0].spec_stats() == engs[1].spec_stats()
+
+
+def test_moe_engine_on_card_matches_plain_path(dev):
+    """The qwen2-moe smoke engine on the card (flash in its eager
+    prefill, decode or paged decode per step) against the same engine on
+    the CPU, f32: swap, recompute, and swap over the page pool."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import (TPU_V5E, LatencyModel, SchedulerConfig,
+                                  make_scheduler)
+    from repro_torch.models import Model
+    from repro_torch.serving import (ServingEngine, all_flips_documented,
+                                     audit_flips, timing_fingerprint)
+    cfg = get_smoke_config("qwen2-moe-a2.7b")
+    cpu = Model(cfg, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    gpu = Model(cfg, device=dev)
+    gparams = _to(params, dev)
+    for kw in (dict(preemption_mode="swap"),
+               dict(preemption_mode="recompute"),
+               dict(preemption_mode="swap", page_size=16)):
+        outs, engs = [], []
+        n0 = tcuda.launches["flash_attention"]
+        for m, p in ((cpu, params), (gpu, gparams)):
+            lat = LatencyModel(cfg, TPU_V5E)
+            sched = make_scheduler("andes", 100, lat,
+                                   SchedulerConfig(delta_t=2.0))
+            eng = ServingEngine(m, p, sched, lat, num_slots=4, max_seq=64,
+                                capacity_tokens=100, device=m.device, **kw)
+            outs.append(eng.run(_smoke_trace(cfg), max_iterations=4000))
+            engs.append(eng)
+        assert engs[1].preemptions > 0
+        assert engs[1].physical_pages == ("page_size" in kw)
+        assert tcuda.launches["flash_attention"] > n0
         assert timing_fingerprint(outs[0]) == timing_fingerprint(outs[1])
         flips = audit_flips(cpu, params, outs[0], outs[1])
         assert all_flips_documented(flips), flips

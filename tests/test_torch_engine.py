@@ -164,14 +164,6 @@ def test_engine_with_eos_matches_reference(models, kw):
         assert stats[key] == jstats[key], key
 
 
-def test_speculation_not_ported_raises(models):
-    _, _, _, tm, tp = models
-    lat = LatencyModel(tm.cfg, TPU_V5E)
-    with pytest.raises(NotImplementedError, match="speculative"):
-        ServingEngine(tm, tp, make_scheduler("andes", CAP, lat), lat,
-                      num_slots=4, max_seq=64, spec_k=2, device="cpu")
-
-
 def test_engine_device_must_match_the_model(models):
     _, _, _, tm, tp = models
     lat = LatencyModel(tm.cfg, TPU_V5E)

@@ -55,6 +55,8 @@ def test_port_sources_found():
                  "src/repro_torch/serving/engine.py",
                  "src/repro_torch/serving/simulator.py",
                  "src/repro_torch/cluster/cluster_sim.py",
+                 "src/repro_torch/serving/speculative.py",
+                 "src/repro_torch/models/moe.py",
                  "src/repro_torch/workload/sharegpt.py", "chip_smoke.py"):
         assert want in names, want
 

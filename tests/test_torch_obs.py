@@ -203,6 +203,67 @@ def test_observers_leave_the_run_unchanged(models, observed):
     assert _fingerprint(base) == _fingerprint(inst)
 
 
+def test_spec_engine_observed_matches_reference(models):
+    """An instrumented speculative engine (spec_k=2, the target as its
+    own draft; the reference's tests/test_obs.py case) against the
+    reference's: the observers change nothing, the two traces hold the
+    same events and the two registries the same samples, the registry's
+    counters equal the engine's hot-path counters, and the speculative
+    counters are live."""
+    from repro.core import SpeculativeLatencyModel as JSpecLat
+    from repro_torch.core import SpeculativeLatencyModel
+    cfg, jm, jp, tm, tp = models
+
+    def build(port):
+        if port:
+            lat = SpeculativeLatencyModel(tm.cfg, TPU_V5E, tm.cfg, k=2)
+            return ServingEngine(
+                tm, tp, make_scheduler("andes", 160, lat), lat,
+                num_slots=3, max_seq=64, capacity_tokens=160,
+                draft_model=tm, draft_params=tp, spec_k=2, device="cpu")
+        lat = JSpecLat(cfg, J_TPU_V5E, cfg, k=2)
+        return JEngine(jm, jp, j_make_scheduler("andes", 160, lat), lat,
+                       num_slots=3, max_seq=64, capacity_tokens=160,
+                       draft_model=jm, draft_params=jp, spec_k=2)
+
+    base = build(True).run(_trace(Request, QoESpec, cfg.vocab_size))
+    teng = build(True)
+    ttr, treg = TraceRecorder(), MetricsRegistry()
+    teng.observer = compose(ttr, MetricsObserver(treg),
+                            ProfilingObserver(treg))
+    register_backend_gauges(treg, teng)
+    tout = teng.run(_trace(Request, QoESpec, cfg.vocab_size))
+    assert _fingerprint(base) == _fingerprint(tout)
+
+    jeng = build(False)
+    jtr, jreg = JTraceRecorder(), JMetricsRegistry()
+    jeng.observer = j_compose(jtr, JMetricsObserver(jreg),
+                              JProfilingObserver(jreg))
+    j_register_gauges(jreg, jeng)
+    jeng.run(_trace(JRequest, JSpec, cfg.vocab_size))
+    tev, jev = _events(ttr), _events(jtr)
+    assert "spec" in {k for k, *_ in tev}
+    assert len(tev) == len(jev)
+    for i, (a, b) in enumerate(zip(tev, jev)):
+        assert a == b, (i, a, b)
+    tsam, jsam = registry_samples_dict(treg), j_samples(jreg)
+    assert tsam.keys() == jsam.keys()
+    for k, v in jsam.items():
+        assert tsam[k] == v, k
+
+    hs = teng.hotpath_stats()
+    assert treg.value("engine_host_syncs_total") == hs["host_syncs"]
+    assert sum(v for _, _, v in treg.get(
+        "engine_dispatches_total").samples()) == hs["dispatches"]
+    # one compile event per bucket shape and cache (target and draft)
+    assert treg.value("engine_jit_compiles_total") == \
+        2 * hs["prefill_compiles"]
+    proposed = treg.value("engine_spec_proposed_total")
+    accepted = treg.value("engine_spec_accepted_total")
+    assert proposed > 0 and 0 < accepted <= proposed
+    assert treg.value("spec_acceptance_rate") == accepted / proposed
+
+
 def test_event_sink_composes_and_rewires_scheduler(models):
     """The legacy sink and an installed observer see one stream; the
     scheduler's obs is always the engine's composed obs."""
