@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Drives the port's main paths — the Andes serving engine over the
-full-width, full-depth Llama-3-8B, Falcon-Mamba-7B, Zamba2-2.7B and
-Qwen1.5-MoE-A2.7B configs with random bf16 weights made from a seed, the
+full-width, full-depth Llama-3-8B, Falcon-Mamba-7B, Zamba2-2.7B,
+Qwen1.5-MoE-A2.7B, SeamlessM4T-medium and Pixtral-12B configs with random
+bf16 weights made from a seed, the
 HTTP/SSE server over the Llama-3-8B engine on the wall clock, the cluster
 layer over engine-backed Llama-3-8B replicas, and speculative decoding
 over the Llama-3-8B target — and holds every hand-written CUDA kernel on
@@ -36,13 +37,19 @@ those paths against its plain PyTorch version. Phases, in order:
    over depth 1024, and flash over one row at its exact length (389 and
    64); at phase 10's: decode over caches 1028 deep for the llama3-8b
    target and the foreign draft (H 4, KV 2, hd 32), and the draft's
-   flash (1 x 512 bucket);
+   flash (1 x 512 bucket); at phase 12's seamless-m4t-medium (H = KV =
+   16, hd 64): decode (B=8, depth 1024) and bidirectional flash for the
+   encoder (4 x 256), cross-attention at prefill (1 x 512 queries over
+   256 keys) and at decode (Sq = 1, B=8 over 256 keys), the last timed
+   also on the decode kernel, which computes the same function;
 4. the smoke-size engines on the card against the same engines on the CPU
    (plain versions), f32, with a capacity that forces preemption: llama3
    over the contiguous cache and the page pool, falcon-mamba and zamba2
    in swap and in recompute mode; the llama3 speculative engine (k = 2)
    with the exact and a perturbed draft; qwen2-moe in swap and recompute
-   mode. Identical virtual timing and tokens identical up to documented
+   mode; seamless-m4t-medium (frames from each rid) in swap and
+   recompute mode; pixtral-12b over the page pool and the contiguous
+   cache. Identical virtual timing and tokens identical up to documented
    near-ties — the repo's differential check on a small input;
 5. the full-width llama3-8b engine, twice: over the physical page pool
    (page 16, paged decode kernel) and over the contiguous cache (decode
@@ -139,7 +146,26 @@ those paths against its plain PyTorch version. Phases, in order:
    (capacity factor E / k) must agree up to bf16 near-ties. Also the
    share of routed assignments dropped at decode, one prompt's logits
    against the plain path on the card, and profiled decode and prefill
-   windows.
+   windows;
+12. the full-width encoder-decoder and vision-language engines over
+   phase 5's trace (8 slots, max_seq 1024): (12a) seamless-m4t-medium
+   (12 encoder + 12 decoder layers, d 1024, 16 heads of hd 64, no RoPE),
+   each request carrying ``synthetic_frames`` keyed by its rid (enc_seq
+   256), with ample capacity, with a capacity that forces swap
+   preemption, and with ample capacity on the plain attention versions
+   (no kernel launched): every request finishes, the ample and plain runs
+   share one timing fingerprint, tokens agree up to near-ties (judged
+   along the ample engine's layout, with frames); flash = 36 per prefill
+   group (12 encoder, 12 self, 12 cross) + 12 per decode iteration (cross
+   at Sq = 1), decode = 12 per iteration, no paged decode, every flash on
+   the tensor-core body; the same prompts with zero frames must change
+   some tokens. (12b) pixtral-12b (40 layers, d 5120, 32/8 heads of hd
+   128) over the page pool (page 16) and the contiguous cache: one
+   timing fingerprint, tokens up to near-ties, flash = 40 per prefill
+   group, decode or paged decode = 40 per iteration; then one prefill
+   with a 64-patch prefix, kernels against the plain path, whose cache
+   length counts the patches. Each prints the walls per decode iteration
+   and prefill group and profiled windows.
 
 It prints the kernels' JSON line, the card line, and last the result
 line {"ok": true, "device": {...}}. With no CUDA device, or outside a
@@ -383,6 +409,10 @@ def check_kernels(torch):
                 extra=" (speculative target: B=8, depth 1028)")
     decode_case(8, spec_lengths, heads=(4, 2, 32), s=1028,
                 extra=" (foreign draft: B=8, H=4, KV=2, hd 32, depth 1028)")
+    # ---- seamless-m4t-medium's decoder self-attention (phase 12): H = KV
+    # = 16 (G = 1), hd 64, depth 1024 --------------------------------------
+    decode_case(8, lengths, heads=(16, 16, 64),
+                extra=" (seamless: B=8, H=KV=16, hd 64)")
 
     def flash_case(lengths, extra="", heads=(32, 8, 128), s=512):
         """Causal prefill of len(lengths) rows of an `s` bucket."""
@@ -423,6 +453,59 @@ def check_kernels(torch):
     # ---- the foreign draft's bucketed prefill: H 4, KV 2, hd 32 -------
     flash_case([389], heads=(4, 2, 32),
                extra=" (foreign draft: 1 x 512 bucket, H=4, KV=2, hd 32)")
+
+    def bidir_case(b, sq, sk, lens, extra, heads=(16, 16, 64)):
+        """Bidirectional attention of b x sq queries over sk keys, keys at
+        or past `lens` masked (None: no lengths, as the engine's encoder):
+        seamless-m4t-medium's encoder and cross-attention. Returns the
+        inputs."""
+        h, kv, hd = heads
+        q = rnd(b, sq, h, hd)
+        k, v = rnd(b, sk, kv, hd), rnd(b, sk, kv, hd)
+        lengths = (None if lens is None
+                   else torch.tensor(lens, dtype=torch.int32).cuda())
+        n_keys = [sk] * b if lens is None else [min(n, sk) for n in lens]
+        valid = torch.stack([torch.arange(sk, device="cuda") < n
+                             for n in n_keys])[:, None, None, :]
+        nbytes = (2 * (2 * b * sq * h * hd) + 2 * 2 * sum(n_keys) * kv * hd
+                  + (b * 4 if lens is not None else 0))
+        lib = (lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), attn_mask=valid,
+                            enable_gqa=True)) if sdpa else None
+
+        def kern():
+            return kc.flash_attention(q, k, v, causal=False, lengths=lengths)
+
+        def plain():
+            return ref.attention_ref(q, k, v, causal=False, lengths=lengths)
+        record("flash_attention", kern(), plain(), kern, plain, lib, nbytes,
+               4 * h * hd * sq * sum(n_keys), extra=extra)
+        return q, k, v, lengths, nbytes, sq * sum(n_keys)
+
+    # ---- seamless-m4t-medium (phase 12): the encoder, 4 x 256 frames;
+    # cross-attention at prefill (a 512 bucket of queries over 256 keys)
+    # and at decode (Sq = 1) -------------------------------------------
+    bidir_case(4, 256, 256, None,
+               " (seamless encoder: 4 x 256, bidirectional, H=KV=16, hd 64)")
+    bidir_case(1, 512, 256, [256],
+               " (seamless cross-attention at prefill: 1 x 512 queries over "
+               "256 keys)")
+    q, k, v, enc_len, nbytes, pairs = bidir_case(
+        8, 1, 256, [256] * 8,
+        " (seamless cross-attention at decode: Sq = 1, B=8 over 256 keys)")
+    # the decode kernel computes the same function on the same inputs
+    # (decode_attention_ref is attention_ref at Sq = 1, bidirectional)
+    q1 = q[:, 0]
+    mask = (torch.arange(256, device="cuda")[None, :] < enc_len[:, None])
+    record("decode_attention", kc.decode_attention(q1, k, v, enc_len),
+           ref.decode_attention_ref(q1, k, v, enc_len),
+           lambda: kc.decode_attention(q1, k, v, enc_len),
+           lambda: ref.decode_attention_ref(q1, k, v, enc_len),
+           (lambda: sdpa(q1[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                         attn_mask=mask[:, None, None, :], enable_gqa=True))
+           if sdpa else None, nbytes, 4 * 16 * 64 * pairs,
+           extra=" (the same cross-attention at Sq = 1 on the decode kernel)")
+    del q, k, v, q1
     print(f"  launches by body (phase 3): {dict(kc.variant_launches)}",
           flush=True)
     rows["selective_scan"] = check_scan(torch, flush, gen)
@@ -648,8 +731,28 @@ def serve(model, params, trace, *, num_slots, max_seq, cache_dtype,
                         cache_dtype=cache_dtype, device=model.device, **kw)
     if timers is not None:
         _instrument(eng, timers)
-    out = eng.run([r.clone() for r in trace], max_iterations=100_000)
+    out = eng.run(clones(trace), max_iterations=100_000)
     return out, eng
+
+
+def clones(trace):
+    """Fresh copies of the trace's requests; an encoder-decoder request's
+    frames ride along (``Request.clone`` leaves them out, as the
+    reference's)."""
+    out = [r.clone() for r in trace]
+    for c, r in zip(out, trace):
+        if getattr(r, "frames", None) is not None:
+            c.frames = r.frames
+    return out
+
+
+def with_frames(trace, cfg, enc_seq):
+    """Attach ``synthetic_frames`` keyed by each request's rid (f32, host)
+    to every request of `trace`; returns the trace."""
+    from repro_torch.serving import synthetic_frames
+    for r in trace:
+        r.frames = synthetic_frames(cfg, [r.rid], enc_seq)[0]
+    return trace
 
 
 def _instrument(eng, timers):
@@ -695,7 +798,11 @@ SMALL_RUNS = (("llama3-8b", dict()), ("llama3-8b", dict(page_size=16)),
               ("falcon-mamba-7b", dict(preemption_mode="swap")),
               ("falcon-mamba-7b", dict(preemption_mode="recompute")),
               ("zamba2-2.7b", dict(preemption_mode="swap")),
-              ("zamba2-2.7b", dict(preemption_mode="recompute")))
+              ("zamba2-2.7b", dict(preemption_mode="recompute")),
+              ("seamless-m4t-medium", dict(preemption_mode="swap")),
+              ("seamless-m4t-medium", dict(preemption_mode="recompute")),
+              ("pixtral-12b", dict(page_size=16)),
+              ("pixtral-12b", dict()))
 
 
 def check_small_engine(torch):
@@ -713,6 +820,8 @@ def check_small_engine(torch):
         gpu = Model(cfg, device="cuda")
         gparams = _to(params, "cuda")
         trace = make_trace(12, cfg.vocab_size, 0, (5, 30), (14, 15), 0.01)
+        if gpu.enc_seq(64):
+            with_frames(trace, cfg, gpu.enc_seq(64))
         runs = [serve(m, p, trace, num_slots=4, max_seq=64,
                       cache_dtype=torch.float32, capacity=100, delta_t=2.0,
                       **kw)
@@ -861,10 +970,12 @@ def check_logits(torch, model, params, prompt):
           f"{float(logits.float().abs().max()):.3f}", flush=True)
 
 
-def check_bf16_flips(model, params, a, b, label):
-    """Two full-width runs agree on tokens up to bf16 near-ties."""
+def check_bf16_flips(model, params, a, b, label, engine=None):
+    """Two full-width runs agree on tokens up to bf16 near-ties (with
+    `engine`, each flip judged along that engine's own layout)."""
     from repro_torch.serving import audit_flips, first_divergence
-    flips = audit_flips(model, params, a, b, tol=BF16_FLIP_TOL)
+    flips = audit_flips(model, params, a, b, tol=BF16_FLIP_TOL,
+                        engine=engine)
     n_div = sum(first_divergence(x.output_tokens, y.output_tokens)
                 is not None for x, y in zip(a, b))
     print(f"  {label}: {n_div} requests with token differences, flips "
@@ -1994,16 +2105,31 @@ def plain_attention():
             setattr(ops, n, f)
 
 
-def check_plain_logits(torch, model, params, prompt):
+def check_plain_logits(torch, model, params, prompt, frames=None,
+                       patches=0):
     """One prompt's last-token logits on the card (the kernels) against
     the plain path on the card (the kernels' plain versions): finite, of
-    the vocab's width, the same top token or a bf16 near-tie."""
+    the vocab's width, the same top token or a bf16 near-tie. An
+    encoder-decoder's prompt takes `frames`; a vlm's takes a prefix of
+    `patches` synthetic patches, which the cache's length must count."""
     import numpy as np
+    from repro_torch.serving import synthetic_patches
     toks = torch.as_tensor(np.asarray(prompt, np.int32))[None].cuda()
+    batch, enc_seq = {"tokens": toks}, 0
+    if frames is not None:
+        batch["frames"] = frames[None].cuda()
+        enc_seq = frames.shape[0]
+    if patches:
+        batch["patch_embeds"] = synthetic_patches(model.cfg, [0], patches,
+                                                  device="cuda")
 
     def run():
-        lg, _ = model.prefill(params, {"tokens": toks}, model.init_cache(
-            1, toks.shape[1] + 1, dtype=torch.bfloat16))
+        lg, cache = model.prefill(params, batch, model.init_cache(
+            1, toks.shape[1] + patches + 1, enc_seq=enc_seq,
+            dtype=torch.bfloat16))
+        if int(cache["length"][0]) != toks.shape[1] + patches:
+            fail(f"prefill cache length {int(cache['length'][0])} for "
+                 f"{toks.shape[1]} tokens and {patches} patches")
         return lg.float()[0]
     kern = run()
     with plain_attention():
@@ -2013,7 +2139,11 @@ def check_plain_logits(torch, model, params, prompt):
         fail(f"bad logits: shape {tuple(kern.shape)}")
     top_k, top_p = int(kern.argmax()), int(plain.argmax())
     margin = float(plain[top_p] - plain[top_k])
-    print(f"  logits (1 x {toks.shape[1]}) finite, shape {tuple(kern.shape)}"
+    what = (f" behind {patches} patches (cache length "
+            f"{toks.shape[1] + patches})" if patches else
+            f" over {enc_seq} frames" if enc_seq else "")
+    print(f"  logits (1 x {toks.shape[1]}{what}) finite, shape "
+          f"{tuple(kern.shape)}"
           f"; vs the plain path on the card: max |diff| "
           f"{float((kern - plain).abs().max()):.4f} (max |logit| "
           f"{float(plain.abs().max()):.3f}), top token {top_k} vs {top_p}"
@@ -2152,6 +2282,145 @@ def check_moe_engine(torch, card):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the full-width encoder-decoder and vision-language engines
+# ---------------------------------------------------------------------------
+
+# the same probe for seamless-m4t-medium: 12 swap preemptions on the
+# virtual clock
+SEAMLESS_TIGHT_CAPACITY = 2048
+VLM_PATCHES = 64
+
+
+def check_launches(name, n, want):
+    for k, v in want.items():
+        if n[k] != v:
+            fail(f"engine {name}: {n[k]} {k} launches, expected {v}")
+
+
+def check_encdec_engine(torch):
+    """Phase 12a: the full-width seamless-m4t-medium engine (12 encoder +
+    12 decoder layers, no RoPE; bf16, seed 0) over phase 5's trace, each
+    request carrying `synthetic_frames` keyed by its rid (enc_seq 256):
+    ample capacity, a capacity that forces swap preemption, and ample
+    again on the plain attention versions. Per prefill group the encoder,
+    the decoder's self-attention and its cross-attention launch flash once
+    a layer; per decode iteration each decoder layer launches decode
+    (self) and flash at Sq = 1 (cross). Then the same prompts with zero
+    frames, which must change some tokens. Returns the launches."""
+    from repro_torch.configs.seamless_m4t_medium import CONFIG
+    from repro_torch.serving import first_divergence, timing_fingerprint
+
+    t_phase = time.perf_counter()
+    model, params = full_width_model(torch, CONFIG)
+    enc_seq = model.enc_seq(1024)
+    L, Le = CONFIG.num_layers, CONFIG.num_encoder_layers
+    trace = with_frames(
+        make_trace(12, CONFIG.vocab_size, 0, (64, 513), (32, 65), 0.05),
+        CONFIG, enc_seq)
+    common = dict(num_slots=8, max_seq=1024, cache_dtype=torch.bfloat16)
+    total = dict.fromkeys(ATTENTION_KERNELS, 0)
+    runs, engs = {}, {}
+    for name, cap, plain in (("seamless ample", 8 * 1024, False),
+                             ("seamless tight", SEAMLESS_TIGHT_CAPACITY,
+                              False),
+                             ("seamless plain", 8 * 1024, True)):
+        with plain_attention() if plain else contextlib.nullcontext():
+            runs[name], engs[name], n, timers = timed_run(
+                torch, model, params, trace, name, capacity=cap, **common)
+        groups = len(timers.get("prefill", []))
+        iters = sum(k for _, k in timers.get("decode", []))
+        flash = 0 if plain else (Le + 2 * L) * groups + L * iters
+        check_launches(name, n, {
+            "flash_attention": flash, "flash_attention/tensor_core": flash,
+            "decode_attention": 0 if plain else L * iters,
+            "paged_decode_attention": 0})
+        for k in total:
+            total[k] += n[k]
+        print(f"  {name}: {groups} prefill groups x {Le + 2 * L} flash, "
+              f"{iters} decode iterations x ({L} decode + {L} flash at "
+              f"Sq = 1); preemptions {engs[name].preemptions}", flush=True)
+    if not engs["seamless tight"].preemptions:
+        fail("engine seamless tight: no preemption")
+    if engs["seamless ample"].preemptions:
+        fail("engine seamless ample preempted")
+    ample = runs["seamless ample"]
+    if timing_fingerprint(ample) != timing_fingerprint(runs["seamless plain"]):
+        fail("seamless: the kernels' and the plain run differ in timing")
+    swapped = engs["seamless tight"].kv.swap_bytes_total / 1e6
+    print(f"  seamless tight: {swapped:.1f} MB of k/v and cross k/v swapped "
+          "out to host memory; ample vs plain: timing identical", flush=True)
+    for other in ("seamless tight", "seamless plain"):
+        check_bf16_flips(model, params, ample, runs[other],
+                         f"seamless ample vs {other.split()[1]}",
+                         engine=engs["seamless ample"])
+    zero, _ = serve(model, params, [r.clone() for r in trace],
+                    capacity=8 * 1024, **common)
+    n_div = sum(first_divergence(a.output_tokens, b.output_tokens)
+                is not None for a, b in zip(ample, zero))
+    print(f"  seamless with zero frames: {n_div} of {len(zero)} requests' "
+          "tokens differ from the run with each request's frames",
+          flush=True)
+    if not n_div:
+        fail("seamless: the encoder memory does not condition the output")
+    check_plain_logits(torch, model, params, ample[0].prompt_tokens,
+                       frames=trace[0].frames)
+    profile_engine_steps(torch, model, params)
+    print(f"  phase 12a wall {time.perf_counter() - t_phase:.2f} s; launches "
+          f"{total}", flush=True)
+    del model, params
+    return total
+
+
+def check_vlm_engine(torch):
+    """Phase 12b: the full-width pixtral-12b engine (40 layers, 32/8 heads
+    of hd 128; bf16, seed 0) over phase 5's trace, over the page pool
+    (page 16) and the contiguous cache (the engine passes no patches, as
+    the reference's): one timing fingerprint, tokens up to bf16 near-ties,
+    flash = 40 per prefill group, decode or paged decode = 40 per decode
+    iteration. Then one prefill with a 64-patch prefix, kernels against
+    the plain path. Returns the launches."""
+    from repro_torch.configs.pixtral_12b import CONFIG
+    from repro_torch.serving import timing_fingerprint
+
+    t_phase = time.perf_counter()
+    model, params = full_width_model(torch, CONFIG)
+    L = CONFIG.num_layers
+    trace = make_trace(12, CONFIG.vocab_size, 0, (64, 513), (32, 65), 0.05)
+    common = dict(num_slots=8, max_seq=1024, cache_dtype=torch.bfloat16,
+                  capacity=8 * 1024)
+    total = dict.fromkeys(ATTENTION_KERNELS, 0)
+    runs = {}
+    for name, kw in (("pixtral paged16", dict(page_size=16)),
+                     ("pixtral contiguous", dict())):
+        runs[name], eng, n, timers = timed_run(torch, model, params, trace,
+                                               name, **common, **kw)
+        groups = len(timers.get("prefill", []))
+        iters = sum(k for _, k in timers.get("decode", []))
+        paged = "page_size" in kw
+        if eng.physical_pages != paged:
+            fail(f"engine {name}: physical_pages={eng.physical_pages}")
+        check_launches(name, n, {
+            "flash_attention": L * groups,
+            "flash_attention/tensor_core": L * groups,
+            "decode_attention": 0 if paged else L * iters,
+            "paged_decode_attention": L * iters if paged else 0})
+        for k in total:
+            total[k] += n[k]
+    a, b = runs["pixtral paged16"], runs["pixtral contiguous"]
+    if timing_fingerprint(a) != timing_fingerprint(b):
+        fail("pixtral: paged and contiguous engines differ in timing")
+    print("  pixtral paged vs contiguous: timing identical", flush=True)
+    check_bf16_flips(model, params, a, b, "pixtral paged vs contiguous")
+    check_plain_logits(torch, model, params, a[0].prompt_tokens,
+                       patches=VLM_PATCHES)
+    profile_engine_steps(torch, model, params)
+    print(f"  phase 12b wall {time.perf_counter() - t_phase:.2f} s; launches "
+          f"{total}", flush=True)
+    del model, params
+    return total
+
+
 def profile_window(torch, label, fn, steps):
     """Trace fn() with torch.profiler: card-busy time (sum of kernel
     device time) against the synchronized host wall time of the window,
@@ -2189,17 +2458,27 @@ def profile_window(torch, label, fn, steps):
 
 def profile_engine_steps(torch, model, params):
     """One prefill group (1 x 512) and a 4-step decode block at 8 slots
-    with 600 tokens of context each, over the contiguous cache."""
+    with 600 tokens of context each, over the contiguous cache (an
+    encoder-decoder's with enc_seq(1024) frames of encoder memory)."""
     from repro_torch.models import cache as cache_lib
+    from repro_torch.serving import synthetic_frames
     toks = torch.randint(0, model.cfg.vocab_size, (1, 512), device="cuda",
                          dtype=torch.int32)
+    enc_seq = model.enc_seq(1024)
+    batch = {"tokens": toks}
+    if enc_seq:
+        batch["frames"] = synthetic_frames(model.cfg, [0], enc_seq,
+                                           device="cuda")
 
     def prefill():
-        model.prefill(params, {"tokens": toks},
-                      model.init_cache(1, 1024, dtype=torch.bfloat16))
+        model.prefill(params, batch, model.init_cache(
+            1, 1024, enc_seq=enc_seq, dtype=torch.bfloat16))
 
     cache = cache_lib.with_lengths(
-        model.init_cache(8, 1024, dtype=torch.bfloat16), [600] * 8)
+        model.init_cache(8, 1024, enc_seq=enc_seq, dtype=torch.bfloat16),
+        [600] * 8)
+    if enc_seq:
+        cache["enc_length"].fill_(enc_seq)
     tokens = torch.zeros(8, dtype=torch.int32, device="cuda")
 
     def decode():
@@ -2313,6 +2592,13 @@ def main() -> None:
     for k, n in check_moe_engine(torch, card).items():
         launches[k] += n
     torch.cuda.empty_cache()
+
+    print("[12] full-width seamless-m4t-medium and pixtral-12b engines "
+          f"(bf16; {card}):", flush=True)
+    for check in (check_encdec_engine, check_vlm_engine):
+        for k, n in check(torch).items():
+            launches[k] += n
+        torch.cuda.empty_cache()
     check_server_cli()
 
     kernels = []

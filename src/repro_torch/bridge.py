@@ -8,8 +8,8 @@ tensors, so a leaf's path and shape are the same on both sides.
 - ``from_numpy``: the reference's tree with numpy leaves (``np.asarray``
   of each JAX array) -> the port's dict of tensors on `device`.
 - ``to_numpy``: back (bf16 leaves widen to float32, numpy has no bf16).
-- ``init_params``: fresh weights for the dense, moe, ssm and hybrid
-  families, following the reference's init
+- ``init_params``: fresh weights for every family, following the
+  reference's init
   (``src/repro/models/transformer.py:39-121``, ``models/moe.py:init_moe``
   and ``models/ssm.py:init_mamba1`` / ``init_mamba2``): normal with std
   0.02, the embedding with std 1.0, norm scales one, biases zero; Mamba-1's
@@ -21,7 +21,12 @@ tensors, so a leaf's path and shape are the same on both sides.
   holds ``moe`` in place of ``mlp``: ``router`` (L, d, E), ``experts``
   ``gate``/``up`` (L, E, d, d_expert) and ``down`` (L, E, d_expert, d),
   and with shared experts a gated ``shared`` MLP of width
-  num_shared_experts x d_expert.
+  num_shared_experts x d_expert. A vlm adds ``vision_proj`` {kernel
+  (d, d)}; an encoder-decoder (encdec, audio) holds ``enc_blocks``
+  (attention + MLP, num_encoder_layers deep), ``enc_norm`` and
+  ``dec_blocks`` (``self_attn``, ``cross_attn``, ``mlp`` and their
+  ``self_norm_scale``, ``cross_norm_scale``, ``mlp_norm_scale``) in
+  place of ``blocks``.
   A torch generator cannot reproduce ``jax.random``, so tests that
   compare the two frameworks bridge the reference's weights instead.
 """
@@ -57,16 +62,12 @@ def to_numpy(tree):
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
                 dtype=torch.float32):
-    """Random params of a dense, moe, ssm or hybrid model in the
-    reference's tree layout.
+    """Random params of a model of any kind in the reference's tree
+    layout.
 
     Draws on the generator's device in f32 (one layer at a time, so a
-    full-width 7-8B config never holds a whole f32 stack) and stores in
+    full-width 7-12B config never holds a whole f32 stack) and stores in
     `dtype` on `device`."""
-    if cfg.kind not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"model kind {cfg.kind!r} is not ported yet (dense, moe, ssm, "
-            "hybrid)")
     dev = resolve_device(device)
     gdev = generator.device
 
@@ -86,25 +87,37 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
     ones = lambda *s: torch.ones(s, dtype=dtype, device=dev)     # noqa: E731
     full = lambda v, *s: torch.full(s, v, dtype=dtype, device=dev)  # noqa: E731
 
-    def attn_mlp(n):
-        """Attention and MLP leaves, stacked n deep (n=None: no axis)."""
+    def draw_fn(n):
+        return normal if n is None else (lambda shape: stacked(n, shape))
+
+    def attn_leaves(n):
+        """One attention block's leaves, stacked n deep (None: no axis)."""
         lead = () if n is None else (n,)
-        draw = normal if n is None else (lambda shape: stacked(n, shape))
+        draw = draw_fn(n)
         attn = {"wq": draw((d, h * hd)), "wk": draw((d, kv * hd)),
                 "wv": draw((d, kv * hd)), "wo": draw((h * hd, d))}
         if cfg.qkv_bias:
             attn.update(bq=full(0.0, *lead, h * hd),
                         bk=full(0.0, *lead, kv * hd),
                         bv=full(0.0, *lead, kv * hd))
-        out = {"attn_norm_scale": ones(*lead, d), "attn": attn,
-               "mlp_norm_scale": ones(*lead, d)}
-        if cfg.kind == "moe":
-            out["moe"] = moe(n)
-            return out
+        return attn
+
+    def mlp_leaves(n):
+        draw = draw_fn(n)
         mlp = {"up": draw((d, cfg.d_ff)), "down": draw((cfg.d_ff, d))}
         if cfg.gated_mlp:
             mlp["gate"] = draw((d, cfg.d_ff))
-        out["mlp"] = mlp
+        return mlp
+
+    def attn_mlp(n):
+        """Attention and MLP leaves, stacked n deep (n=None: no axis)."""
+        lead = () if n is None else (n,)
+        out = {"attn_norm_scale": ones(*lead, d), "attn": attn_leaves(n),
+               "mlp_norm_scale": ones(*lead, d)}
+        if cfg.kind == "moe":
+            out["moe"] = moe(n)
+        else:
+            out["mlp"] = mlp_leaves(n)
         return out
 
     def moe(n):
@@ -175,5 +188,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
         }
         params["shared"] = attn_mlp(None)
         return params
+    if cfg.kind in ("encdec", "audio"):
+        params["enc_blocks"] = attn_mlp(cfg.num_encoder_layers)
+        params["enc_norm"] = {"scale": ones(d)}
+        params["dec_blocks"] = {
+            "self_norm_scale": ones(L, d), "self_attn": attn_leaves(L),
+            "cross_norm_scale": ones(L, d), "cross_attn": attn_leaves(L),
+            "mlp_norm_scale": ones(L, d), "mlp": mlp_leaves(L)}
+        return params
     params["blocks"] = attn_mlp(L)
+    if cfg.kind == "vlm":
+        params["vision_proj"] = {"kernel": normal((d, d))}
     return params

@@ -230,6 +230,8 @@ ARCH_IDS = (
     "llama3-405b",
     "qwen2-moe-a2.7b",
     "phi3.5-moe-42b-a6.6b",
+    "seamless-m4t-medium",
+    "pixtral-12b",
 )
 
 _MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}

@@ -5,10 +5,15 @@ reference (``src/repro/models/attention.py``):
   wq (d, H*hd), wk (d, KV*hd), wv (d, KV*hd), wo (H*hd, d)
   [bq (H*hd,), bk, bv when qkv_bias]
 
-Entry points (dense path):
+Entry points:
+  - ``attn_train``:       full-sequence self-attention, causal or not
+                          (the encoder's is bidirectional)
   - ``attn_prefill``:     causal prompt attention, also returns k/v
   - ``attn_decode``:      one token against a contiguous cache row
   - ``attn_decode_paged``: one token against a physical page pool
+  - ``cross_attn_kv`` / ``cross_attn_apply``: an encoder-decoder's
+                          cross-attention over the encoder's output
+The audio kind (SeamlessM4T) applies no RoPE anywhere, as the reference.
 The decode entry points write the new k/v into the cache IN PLACE (the
 reference returns new arrays); they return the same tensors so call
 sites read like the reference.
@@ -24,7 +29,11 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import rope
 
 
-def _qkv(p, x, cfg: ModelConfig, positions):
+def _rope_on(cfg: ModelConfig) -> bool:
+    return cfg.kind != "audio"
+
+
+def _qkv(p, x, cfg: ModelConfig, positions, *, apply_rope: bool):
     b, s = x.shape[0], x.shape[1]
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = x @ p["wq"]
@@ -35,19 +44,32 @@ def _qkv(p, x, cfg: ModelConfig, positions):
     q = q.reshape(b, s, h, hd)
     k = k.reshape(b, s, kv, hd)
     v = v.reshape(b, s, kv, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if apply_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def attn_train(p, x, cfg: ModelConfig, *, causal: bool = True,
+               window: Optional[int] = None, lengths=None):
+    """Full-sequence self-attention (causal, or bidirectional for the
+    encoder) with keys at or past `lengths` masked."""
+    o, _, _ = _self_attn(p, x, cfg, causal, window, lengths)
+    return o
 
 
 def attn_prefill(p, x, cfg: ModelConfig, *, window: Optional[int] = None,
                  lengths=None):
     """Causal self-attention over a (right-padded) prompt; also returns
     the k/v planes for the cache."""
+    return _self_attn(p, x, cfg, True, window, lengths)
+
+
+def _self_attn(p, x, cfg, causal, window, lengths):
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    q, k, v = _qkv(p, x, cfg, positions)
-    o = ops.attention(q, k, v, causal=True, window=window, lengths=lengths)
+    q, k, v = _qkv(p, x, cfg, positions, apply_rope=_rope_on(cfg))
+    o = ops.attention(q, k, v, causal=causal, window=window, lengths=lengths)
     return o.reshape(b, s, -1) @ p["wo"], k, v
 
 
@@ -60,7 +82,8 @@ def attn_decode(p, x_tok, k_cache, v_cache, lengths, cfg: ModelConfig, *,
     the reference's dynamic_update_slice clamps — and attends over
     lengths+1 tokens. Returns (out (B, d), k_cache, v_cache)."""
     b = x_tok.shape[0]
-    q, k_new, v_new = _qkv(p, x_tok[:, None, :], cfg, lengths[:, None])
+    q, k_new, v_new = _qkv(p, x_tok[:, None, :], cfg, lengths[:, None],
+                           apply_rope=_rope_on(cfg))
     idx = torch.clamp(lengths.long(), max=k_cache.shape[1] - 1)
     rows = torch.arange(b, device=x_tok.device)
     k_cache[rows, idx] = k_new[:, 0].to(k_cache.dtype)
@@ -111,7 +134,8 @@ def attn_decode_paged(p, x_tok, k_pool, v_pool, block_tables, lengths,
     table. `plan` is `paged_write_plan(...)` when the caller shares one
     across layers. Returns (out (B, d), k_pool, v_pool)."""
     b = x_tok.shape[0]
-    q, k_new, v_new = _qkv(p, x_tok[:, None, :], cfg, lengths[:, None])
+    q, k_new, v_new = _qkv(p, x_tok[:, None, :], cfg, lengths[:, None],
+                           apply_rope=_rope_on(cfg))
     if plan is None:
         plan = paged_write_plan(block_tables, lengths, k_pool.shape[0],
                                 k_pool.shape[1])
@@ -120,3 +144,24 @@ def attn_decode_paged(p, x_tok, k_pool, v_pool, block_tables, lengths,
     o = ops.paged_decode_attention(q[:, 0], k_pool, v_pool, block_tables,
                                    lengths + 1, window=window)
     return o.reshape(b, -1) @ p["wo"], k_pool, v_pool
+
+
+def cross_attn_kv(p, enc_out, cfg: ModelConfig):
+    """Cross-attention k/v (B, Se, KV, hd) of the encoder's output, no
+    RoPE."""
+    b, s, _ = enc_out.shape
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    k = (enc_out @ p["wk"]).reshape(b, s, kv, hd)
+    v = (enc_out @ p["wv"]).reshape(b, s, kv, hd)
+    return k, v
+
+
+def cross_attn_apply(p, x, k, v, enc_lengths, cfg: ModelConfig):
+    """x (B, Sq, d) attends, bidirectionally, over the encoder memory k/v
+    (B, Se, KV, hd) up to `enc_lengths` (None: all of it). The prefill
+    kernel takes it at every Sq, decode's Sq = 1 included, as the
+    reference's ``ops.attention`` does."""
+    b, sq, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, sq, cfg.num_heads, cfg.head_dim)
+    o = ops.attention(q, k, v, causal=False, lengths=enc_lengths)
+    return o.reshape(b, sq, -1) @ p["wo"]

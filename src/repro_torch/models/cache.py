@@ -12,10 +12,16 @@ Layouts are the reference's (``src/repro/models/cache.py``):
   k, v          (L, P, page, KV, hd)       physical page pool
   block_tables  (B, max_pages) int32       page ids per slot, ordered;
                                            entries >= P are sentinels
+  cross_k/v     (L, B, S_enc, KV, hd)      enc-dec cross-attention memory
+  enc_length    (B,) int32                 valid encoder positions
 
 A hybrid cache holds k/v for each application of the shared attention
 block (L = num_layers // hybrid_attn_every) beside the Mamba-2 leaves
 (L = its Mamba-2 layers, rounds x per_round in the reference's order).
+An encoder-decoder cache (encdec, audio) holds the decoder's k/v and
+each decoder layer's cross-attention k/v over the encoder's output,
+written once at prefill and read by every decode step; it is never
+paged.
 
 For attention, `length` is the single validity gate in both layouts:
 attention never reads past it, and the next decode write lands on the
@@ -37,21 +43,18 @@ from repro_torch.device import resolve_device
 def _num_attn_applications(cfg: ModelConfig) -> int:
     if cfg.kind == "ssm":
         return 0
-    if cfg.kind not in ("dense", "vlm", "moe", "hybrid"):
-        raise NotImplementedError(
-            f"model kind {cfg.kind!r} is not ported yet (dense, ssm, "
-            "hybrid)")
     if cfg.hybrid_attn_every:
         return cfg.num_layers // cfg.hybrid_attn_every
     return cfg.num_layers
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
-               dtype=torch.bfloat16, device="cuda"):
+               enc_seq: int = 0, dtype=torch.bfloat16, device="cuda"):
     """Contiguous decode cache, zero-filled. Attention layers (or shared
     attention applications) get k/v; Mamba layers get the scan state
     ssm_h in f32 and the conv buffer ssm_conv in `dtype`, in the module
-    docstring's Mamba-1 or Mamba-2 layout."""
+    docstring's Mamba-1 or Mamba-2 layout; an encoder-decoder gets
+    cross_k/cross_v `enc_seq` positions deep and enc_length."""
     dev = resolve_device(device)
     cache = {"length": torch.zeros((batch,), dtype=torch.int32, device=dev)}
     n = _num_attn_applications(cfg)
@@ -71,12 +74,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                                      dtype=torch.float32, device=dev)
         cache["ssm_conv"] = torch.zeros((n_ssm, batch, s.d_conv - 1,
                                          conv_dim), dtype=dtype, device=dev)
+    if cfg.kind in ("encdec", "audio"):
+        shape = (cfg.num_layers, batch, enc_seq, cfg.num_kv_heads,
+                 cfg.head_dim)
+        cache["cross_k"] = torch.zeros(shape, dtype=dtype, device=dev)
+        cache["cross_v"] = torch.zeros(shape, dtype=dtype, device=dev)
+        cache["enc_length"] = torch.zeros((batch,), dtype=torch.int32,
+                                          device=dev)
     return cache
 
 
 def supports_physical_paging(cfg: ModelConfig) -> bool:
     """Physical paging covers archs whose decode state is pure
-    length-gated self-attention KV."""
+    length-gated self-attention KV: recurrent state (ssm, hybrid) has no
+    positional gate to page against, and encoder memory (encdec, audio)
+    is a second, unpaged cache."""
     return cfg.kind in ("dense", "vlm", "moe")
 
 

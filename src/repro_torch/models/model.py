@@ -8,8 +8,14 @@
   logits, cache = model.verify_step(params, window, cache)   # speculative
   proposals, cache = model.propose_step(params, tokens, cache, k)
 
-The counterpart of ``src/repro/models/model.py`` for the dense, moe,
-ssm (Mamba-1) and hybrid (Mamba-2 + shared attention) families.
+The counterpart of ``src/repro/models/model.py`` for every family:
+dense, vlm (a vision-patch prefix), moe, ssm (Mamba-1), hybrid (Mamba-2
++ shared attention) and the encoder-decoders (encdec, audio), whose
+caches hold `enc_seq(max_seq)` positions of encoder memory:
+
+  cache = model.init_cache(B, S, enc_seq=model.enc_seq(S))
+  logits, cache = model.prefill(params, {"tokens": t, "frames": f}, cache)
+
 Params are the reference's stacked tree as a dict of tensors
 (``repro_torch.bridge``). Caches are updated in place.
 """
@@ -48,8 +54,17 @@ class Model:
         return init_params(self.cfg, generator, self.device, dtype)
 
     # ----------------------------------------------------------------- serve
-    def init_cache(self, batch: int, max_seq: int, *, dtype=torch.float32):
-        return cache_lib.init_cache(self.cfg, batch, max_seq, dtype=dtype,
+    def enc_seq(self, max_seq: int) -> int:
+        """Encoder-memory depth a serving cache reserves beside a
+        `max_seq`-token decoder context (0 for every kind but encdec and
+        audio). The one copy of the ratio: the engine's cache and both its
+        prefill paths size the frames by it."""
+        return max_seq // 4 if self.cfg.kind in tfm.ENCDEC_KINDS else 0
+
+    def init_cache(self, batch: int, max_seq: int, *, enc_seq: int = 0,
+                   dtype=torch.float32):
+        return cache_lib.init_cache(self.cfg, batch, max_seq,
+                                    enc_seq=enc_seq, dtype=dtype,
                                     device=self.device)
 
     def supports_physical_paging(self) -> bool:
@@ -64,11 +79,16 @@ class Model:
     def prefill(self, params, batch, cache):
         """Run the prompt, fill the cache, return last-token logits.
 
-        batch: {"tokens": (B, S) [, "lengths": (B,)]}; cache from
-        init_cache (depth >= S): k/v written in place at positions
-        [0, S) — the whole padded row, as the reference's
-        dynamic_update_slice — and the ssm leaves with each row's state at
-        its last valid token. Writes cast to the cache's dtypes.
+        batch: {"tokens": (B, S) [, "lengths": (B,)]} plus, for a vlm,
+        "patch_embeds" (B, P, d) and, for an encoder-decoder, "frames"
+        (B, Se, d) [, "enc_lengths" (B,), default Se]. cache from
+        init_cache (depth >= P + S): k/v written in place at positions
+        [0, P + S) — the whole padded row, as the reference's
+        dynamic_update_slice — the ssm leaves with each row's state at
+        its last valid token, and an encoder-decoder's cross planes and
+        enc_length replaced. Writes cast to the cache's dtypes. The
+        cache's length counts a vlm's P prefix positions; the logits are
+        those of each row's last text position.
         Returns (logits (B, V), cache')."""
         cfg = self.cfg
         tokens = batch["tokens"]
@@ -77,17 +97,29 @@ class Model:
         if lengths is None:
             lengths = torch.full((b,), s, dtype=torch.int32,
                                  device=tokens.device)
+        n_patch = 0
+        if cfg.kind == "vlm" and "patch_embeds" in batch:
+            n_patch = batch["patch_embeds"].shape[1]
+        ctx_lengths = lengths + n_patch     # cache positions incl. patches
         h, _, parts = tfm.forward(params, cfg, batch, window=self.window,
-                                  collect_cache=True, lengths=lengths,
+                                  collect_cache=True, lengths=ctx_lengths,
                                   return_hidden=True,
                                   moe_seq_chunk=self.moe_seq_chunk)
         for key in ("k", "v"):
             for i, part in enumerate(parts.get(key, ())):
-                cache[key][i, :, :s] = part
+                cache[key][i, :, :part.shape[1]] = part
         for key in ("ssm_h", "ssm_conv"):
             for i, part in enumerate(parts.get(key, ())):
                 cache[key][i] = part
-        cache = dict(cache, length=lengths.to(torch.int32))
+        if cfg.kind in tfm.ENCDEC_KINDS:
+            enc_len = batch.get("enc_lengths")
+            if enc_len is None:
+                enc_len = torch.full((b,), batch["frames"].shape[1],
+                                     dtype=torch.int32, device=tokens.device)
+            cache = dict(cache, enc_length=enc_len.to(torch.int32), **{
+                key: torch.stack(parts[key]).to(cache[key].dtype)
+                for key in ("cross_k", "cross_v")})
+        cache = dict(cache, length=ctx_lengths.to(torch.int32))
         # last valid position per row; the unembed runs on those rows only
         last = torch.clamp(lengths.long() - 1, 0, s - 1)
         h_last = h[torch.arange(b, device=h.device), last]

@@ -2,10 +2,24 @@
 
 Weights are stacked with a leading layer axis, as in the reference
 (``src/repro/models/transformer.py``), whose ``jax.lax.scan`` over the
-layers becomes a Python loop here. The dense, moe (attention plus a
-routed-expert MLP), ssm (Mamba-1) and hybrid (Mamba-2 rounds, each
-followed by one weight-shared attention+MLP block) families are ported;
-the others raise.
+layers becomes a Python loop here. Every family is ported: dense, vlm
+(dense with a projected vision-patch prefix; logits over the text
+positions only), moe (attention plus a routed-expert MLP), ssm
+(Mamba-1), hybrid (Mamba-2 rounds, each followed by one weight-shared
+attention+MLP block), and the encoder-decoders encdec and audio (a
+bidirectional encoder over frame embeddings, then decoder layers of
+causal self-attention, cross-attention over the encoder's output and an
+MLP; audio applies no RoPE).
+
+The encoder's entry dtype differs from the reference's on purpose.
+Frames are f32 host arrays; in JAX ``f32 @ bf16`` promotes, so under
+bf16 weights the reference's encoder runs in f32 and its cross planes
+come out f32. ``f32 @ bf16`` raises in torch, so ``encode`` casts the
+frames to the embedding's dtype: under bf16 weights the port's encoder
+runs in bf16 (on the flash kernel's tensor-core body on the card) and
+its cross planes are written in the cache's dtype. In f32 the two
+agree, which is where the CPU differential tests hold them. Patch
+embeddings are cast to ``vision_proj``'s dtype the same way.
 
 ``verify_step`` and ``propose_step`` (speculative decoding) are loops
 over ``decode_step`` with no host sync inside, as the reference's scans
@@ -32,7 +46,8 @@ def layer_params(tree, i: int):
     return tree[i]
 
 
-PORTED_KINDS = ("dense", "moe", "ssm", "hybrid")
+PORTED_KINDS = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec", "audio")
+ENCDEC_KINDS = ("encdec", "audio")
 
 
 def check_kind(cfg: ModelConfig) -> None:
@@ -48,9 +63,14 @@ def forward(params, cfg: ModelConfig, batch, *,
             moe_seq_chunk: int = 0):
     """Full-sequence causal forward.
 
+    batch: {"tokens": (B, S)} plus "patch_embeds" (B, P, d) for a vlm
+    (a prefix of P positions; `lengths` then counts them) and "frames"
+    (B, Se, d) [, "enc_lengths" (B,)] for an encoder-decoder.
     Returns (logits, aux) or, with collect_cache, (logits, aux, parts)
     where parts holds each layer's cache planes: {"k": [L x (B, S, KV,
-    hd)], "v": [...]} for dense and moe, {"ssm_h": [L x (B, di, N)],
+    hd)], "v": [...]} for dense, vlm and moe (S includes a vlm's
+    prefix), the same plus "cross_k"/"cross_v" [L x (B, Se, KV, hd)]
+    for an encoder-decoder, {"ssm_h": [L x (B, di, N)],
     "ssm_conv": [L x (B, K-1, di)]} for ssm, and for hybrid k/v per
     round beside {"ssm_h": [L_ssm x (B, NH, HD, N)], "ssm_conv": [L_ssm x
     (B, K-1, di + 2N)]} in rounds x per_round order. With return_hidden the
@@ -59,8 +79,11 @@ def forward(params, cfg: ModelConfig, batch, *,
     positions are routed to no expert, and `moe_seq_chunk` routes over
     sequence chunks (``moe.moe_apply_chunked``)."""
     check_kind(cfg)
-    h = embed_apply(params["embed"], batch["tokens"])
-    if cfg.kind == "ssm":
+    encdec = cfg.kind in ENCDEC_KINDS
+    h = None if encdec else _embed_inputs(params, cfg, batch)
+    if encdec:
+        h, parts = _forward_encdec(params, cfg, batch, lengths)
+    elif cfg.kind == "ssm":
         h, parts = _forward_ssm(params, cfg, h, collect_cache, lengths)
     elif cfg.kind == "hybrid":
         h, parts = _forward_hybrid(params, cfg, h, window, collect_cache,
@@ -69,12 +92,57 @@ def forward(params, cfg: ModelConfig, batch, *,
         h, parts, aux = _forward_dense(params, cfg, h, window, lengths,
                                        moe_seq_chunk)
     h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
+    if cfg.kind == "vlm" and "patch_embeds" in batch:
+        h = h[:, batch["patch_embeds"].shape[1]:]   # the text positions
     if cfg.kind != "moe":
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
     out = h if return_hidden else unembed(params, h)
     if collect_cache:
         return out, aux, parts
     return out, aux
+
+
+def _embed_inputs(params, cfg, batch):
+    """Token embedding, behind a vlm's projected patch prefix."""
+    h = embed_apply(params["embed"], batch["tokens"])
+    if cfg.kind == "vlm" and "patch_embeds" in batch:
+        w = params["vision_proj"]["kernel"]
+        vis = batch["patch_embeds"].to(w.dtype) @ w
+        h = torch.cat([vis.to(h.dtype), h], dim=1)
+    return h
+
+
+def encode(params, cfg: ModelConfig, enc_inputs, enc_lengths=None):
+    """The encoder stack over frame embeddings (B, Se, d), bidirectional,
+    keys at or past `enc_lengths` masked -> (B, Se, d). The frames are
+    cast to the embedding's dtype (module docstring)."""
+    h = enc_inputs.to(params["embed"]["table"].dtype)
+    for i in range(cfg.num_encoder_layers):
+        bp = layer_params(params["enc_blocks"], i)
+        x = rms_norm(h, bp["attn_norm_scale"], cfg.norm_eps)
+        a = attn.attn_train(bp["attn"], x, cfg, causal=False,
+                            lengths=enc_lengths)
+        h = _add_mlp(bp, cfg, h, a)
+    return rms_norm(h, params["enc_norm"]["scale"], cfg.norm_eps)
+
+
+def _forward_encdec(params, cfg, batch, lengths):
+    enc_lengths = batch.get("enc_lengths")
+    enc_out = encode(params, cfg, batch["frames"], enc_lengths)
+    h = embed_apply(params["embed"], batch["tokens"])
+    parts = {"k": [], "v": [], "cross_k": [], "cross_v": []}
+    for i in range(cfg.num_layers):
+        bp = layer_params(params["dec_blocks"], i)
+        x = rms_norm(h, bp["self_norm_scale"], cfg.norm_eps)
+        a, k, v = attn.attn_prefill(bp["self_attn"], x, cfg, lengths=lengths)
+        h = h + a
+        x = rms_norm(h, bp["cross_norm_scale"], cfg.norm_eps)
+        ck, cv = attn.cross_attn_kv(bp["cross_attn"], enc_out, cfg)
+        h = _add_mlp(bp, cfg, h, attn.cross_attn_apply(
+            bp["cross_attn"], x, ck, cv, enc_lengths, cfg))
+        for key, t in zip(parts, (k, v, ck, cv)):
+            parts[key].append(t)
+    return h, parts
 
 
 def _forward_ssm(params, cfg, h, collect_cache, lengths):
@@ -169,7 +237,8 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, *,
     """One decode iteration: tokens (B,) int32 -> (logits (B, V), cache').
 
     The cache's k/v (or ssm_h/ssm_conv, or all four for hybrid) are
-    updated in place; the returned dict carries length + 1. A cache with
+    updated in place (an encoder-decoder's cross planes are only read);
+    the returned dict carries length + 1. A cache with
     `block_tables` routes through the page pool (one write plan serves
     every layer)."""
     check_kind(cfg)
@@ -177,6 +246,8 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, *,
     h = embed_apply(params["embed"], tokens)
     if cfg.kind == "ssm":
         h = _decode_ssm(params, cfg, h, cache)
+    elif cfg.kind in ENCDEC_KINDS:
+        h = _decode_encdec(params, cfg, h, cache, window)
     elif cfg.kind == "hybrid":
         h = _decode_hybrid(params, cfg, h, cache, window)
     else:
@@ -218,6 +289,26 @@ def _decode_hybrid(params, cfg, h, cache, window):
         a, _, _ = attn.attn_decode(shared["attn"], x, cache["k"][r],
                                    cache["v"][r], lengths, cfg, window=window)
         h = _add_mlp(shared, cfg, h, a)
+    return h
+
+
+def _decode_encdec(params, cfg, h, cache, window):
+    """Decoder layers over the cache: self-attention decode, then
+    cross-attention of the one new position over the layer's cross
+    planes up to enc_length (the prefill kernel at Sq = 1 on the card,
+    as the reference's ``ops.attention``)."""
+    lengths, enc_lengths = cache["length"], cache["enc_length"]
+    for i in range(cfg.num_layers):
+        bp = layer_params(params["dec_blocks"], i)
+        x = rms_norm(h, bp["self_norm_scale"], cfg.norm_eps)
+        a, _, _ = attn.attn_decode(bp["self_attn"], x, cache["k"][i],
+                                   cache["v"][i], lengths, cfg, window=window)
+        h = h + a
+        x = rms_norm(h, bp["cross_norm_scale"], cfg.norm_eps)
+        c = attn.cross_attn_apply(bp["cross_attn"], x[:, None],
+                                  cache["cross_k"][i], cache["cross_v"][i],
+                                  enc_lengths, cfg)
+        h = _add_mlp(bp, cfg, h, c[:, 0])
     return h
 
 

@@ -8,6 +8,10 @@ from repro_torch.serving.lossless import (FLIP_TOL, all_flips_documented,
                                           fingerprint,
                                           first_divergence,
                                           timing_fingerprint)
+from repro_torch.serving.modality import (audio_frame_specs,
+                                         synthetic_frames,
+                                         synthetic_patches,
+                                         vision_patch_specs)
 from repro_torch.serving.simulator import (ServingSimulator, SimConfig,
                                            SimResult)
 from repro_torch.serving.speculative import (DraftProposer,
@@ -24,4 +28,6 @@ __all__ = [
     "exact_margin", "engine_margin", "classify_flip", "audit_flips",
     "all_flips_documented",
     "Tolerance", "ToleranceSpec", "ToleranceReport", "compare_requests",
+    "audio_frame_specs", "vision_patch_specs", "synthetic_frames",
+    "synthetic_patches",
 ]

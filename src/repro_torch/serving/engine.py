@@ -86,15 +86,18 @@ class HotpathConfig:
                              multi_step=1)
 
 
-def _slot_axis(key: str) -> int:
-    return 0 if key == "length" else 1   # length (B,) vs (L, B, ...)
+def _slot_axis(leaf: torch.Tensor) -> int:
+    """A leaf's slot axis, by its rank as in the reference: 0 for the
+    per-slot vectors (length, enc_length (B,)), 1 for the stacked
+    planes (L, B, ...)."""
+    return 0 if leaf.ndim == 1 else 1
 
 
 def _write_slot(cache, src, slot: int):
     """Insert batch-1 `src` rows into `cache` at slot `slot` (in place)."""
     for key, s in src.items():
         c = cache[key]
-        if _slot_axis(key) == 0:
+        if _slot_axis(c) == 0:
             c[slot] = s[0].to(device=c.device, dtype=c.dtype)
         else:
             c[:, slot] = s[:, 0].to(device=c.device, dtype=c.dtype)
@@ -114,7 +117,7 @@ def _write_slots(cache, src, slots: np.ndarray):
     sel = torch.as_tensor(rows, dtype=torch.long).to(dev)
     for key, s in src.items():
         c = cache[key]
-        if _slot_axis(key) == 0:
+        if _slot_axis(c) == 0:
             c[dst] = s[sel].to(c.dtype)
         else:
             c[:, dst] = s[:, sel].to(c.dtype)
@@ -127,7 +130,7 @@ def _read_slot(cache, slot: int):
     for key, c in cache.items():
         if key == "block_tables":
             continue
-        ax = _slot_axis(key)
+        ax = _slot_axis(c)
         out[key] = c.narrow(ax, slot, 1).to("cpu", copy=True)
     return out
 
@@ -171,13 +174,16 @@ class BucketedPrefill:
     caller groups) to (row_bucket, len_bucket), runs one ``Model.prefill``
     with per-row ``lengths`` masking, takes the first-token argmax on the
     device, and returns (first_ids (N,), cache rows) for one fused
-    `_write_slots` scatter. `shapes_seen` records the padded shapes run."""
+    `_write_slots` scatter. `shapes_seen` records the padded shapes run.
+    An encoder-decoder's rows also take frames, padded to
+    (rows, enc_seq, d) f32 with zeros for a row that has none."""
 
     def __init__(self, model: Model, cache_seq: int, cache_dtype, *,
                  max_seq: int, bucket_min: int = 16):
         self.model = model
         self.cache_seq = cache_seq
         self.cache_dtype = cache_dtype
+        self.enc_seq = model.enc_seq(max_seq)
         # geometric (x2) grid from bucket_min; the terminal bucket is
         # clamped to the physical cache depth and still covers max_seq
         self.buckets: List[int] = []
@@ -208,15 +214,18 @@ class BucketedPrefill:
             b *= 2
         return b
 
-    def _call(self, params, tokens, lengths):
+    def _call(self, params, tokens, lengths, frames):
         cache = self.model.init_cache(tokens.shape[0], self.cache_seq,
+                                      enc_seq=self.enc_seq,
                                       dtype=self.cache_dtype)
         batch = {"tokens": tokens, "lengths": lengths}
+        if self.enc_seq:
+            batch["frames"] = frames
         logits, cache = self.model.prefill(params, batch, cache)
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
-    def prefill_into(self, params, cache, slots, toks_list, *,
-                     need_first=True, write=None):
+    def prefill_into(self, params, cache, slots, toks_list,
+                     frames_list=None, *, need_first=True, write=None):
         """Grouped flush: prefill every (slot, tokens) pair and scatter the
         rows into `cache` — one padded multi-row call and one fused write
         per bucket group. Returns (cache', first_ids (N,) int32 aligned
@@ -234,7 +243,9 @@ class BucketedPrefill:
         syncs = 0
         for bucket in sorted(groups):
             idxs = groups[bucket]
-            first, src = self.run(params, [toks_list[i] for i in idxs])
+            first, src = self.run(
+                params, [toks_list[i] for i in idxs],
+                [frames_list[i] for i in idxs] if frames_list else None)
             rows = src["length"].shape[0]
             pad = np.full((rows,), oob, np.int32)
             pad[: len(idxs)] = [slots[i] for i in idxs]
@@ -246,9 +257,10 @@ class BucketedPrefill:
                     first_out[i] = first[j]
         return cache, first_out, syncs, len(groups)
 
-    def run(self, params, toks_list):
+    def run(self, params, toks_list, frames_list=None):
         """Prefill one same-bucket group. toks_list: per-request token
-        arrays; returns (first_ids (rows,) on the device, padded rows)."""
+        arrays; frames_list: per-request (enc_seq, d) frames or None;
+        returns (first_ids (rows,) on the device, padded rows)."""
         rows = self.row_bucket(len(toks_list))
         seq = self.bucket(max(len(t) for t in toks_list))
         tokens = np.zeros((rows, seq), np.int32)
@@ -256,10 +268,27 @@ class BucketedPrefill:
         for i, t in enumerate(toks_list):
             tokens[i, : len(t)] = t
             lengths[i] = len(t)
-        self.note_shape((rows, seq))
         dev = self.model.device
+        frames = None
+        if self.enc_seq:
+            d = self.model.cfg.d_model
+            frames = torch.zeros((rows, self.enc_seq, d))
+            for i, f in enumerate(frames_list or ()):
+                frames[i] = frames_row(f, self.enc_seq, d)
+            frames = frames.to(dev)
+        self.note_shape((rows, seq))
         return self._call(params, torch.as_tensor(tokens).to(dev),
-                          torch.as_tensor(lengths).to(dev))
+                          torch.as_tensor(lengths).to(dev), frames)
+
+
+def frames_row(f, enc_seq: int, d: int) -> torch.Tensor:
+    """A request's frames (a tensor, an array, or None: zeros) as an
+    (enc_seq, d) f32 host tensor, as the engine feeds its encoder."""
+    if f is None:
+        return torch.zeros((enc_seq, d))
+    if not isinstance(f, torch.Tensor):
+        f = torch.as_tensor(np.asarray(f))
+    return f.to("cpu", torch.float32)
 
 
 @dataclasses.dataclass
@@ -272,6 +301,7 @@ class _StagedPrefill:
     slot: int
     toks: np.ndarray
     emit_t: Optional[float]
+    frames: Optional[object] = None
 
 
 class ServingEngine:
@@ -384,6 +414,7 @@ class ServingEngine:
             self._pool_pages = 0
             self._max_pages = 0
             self.cache = model.init_cache(num_slots, self._cache_seq,
+                                          enc_seq=model.enc_seq(max_seq),
                                           dtype=cache_dtype)
         # the device entry points (the reference jits these)
         self._decode = model.decode_step
@@ -673,6 +704,11 @@ class ServingEngine:
             np.asarray(r.output_tokens[: r.generated], np.int32),
         ])
 
+    def _frames_of(self, r: Request):
+        """The request's encoder frames (None: zeros), for an
+        encoder-decoder only."""
+        return getattr(r, "frames", None) if self._prefill.enc_seq else None
+
     def _can_stage_prefill(self, r: Request) -> bool:
         if not self.hotpath.prefill_buckets or not self._prefill_bucketable:
             return False
@@ -693,7 +729,7 @@ class ServingEngine:
             self.fluid.emit(r.fluid_idx, emit_t, 1)
             self.kv.grow(r)
             self.total_tokens += 1
-        return _StagedPrefill(r, slot, toks, emit_t)
+        return _StagedPrefill(r, slot, toks, emit_t, self._frames_of(r))
 
     # ------------------------------------------------------ chunked prefill
     def _should_chunk(self, r: Request) -> bool:
@@ -728,7 +764,7 @@ class ServingEngine:
                 self.fluid.emit(r.fluid_idx, emit_t, 1)
                 self.kv.grow(r)
                 self.total_tokens += 1
-        return _StagedPrefill(r, slot, prefix, emit_t)
+        return _StagedPrefill(r, slot, prefix, emit_t, self._frames_of(r))
 
     def _flush_prefills(self, staged: List[_StagedPrefill]) -> None:
         """Run every staged admission's device work; first-token emissions
@@ -742,7 +778,7 @@ class ServingEngine:
         slots = [rec.slot for rec in staged]
         self.cache, first, syncs, n_groups = self._prefill.prefill_into(
             self.params, self.cache, slots, [rec.toks for rec in staged],
-            write=writer)
+            [rec.frames for rec in staged], write=writer)
         self._sync(syncs)
         self._dispatch("prefill", n_groups)
         self._dispatch("write", n_groups)
@@ -778,8 +814,14 @@ class ServingEngine:
         toks = self._prompt_tokens(r)
         kv_dtype = (self.cache["k"].dtype if "k" in self.cache
                     else self.cache["ssm_conv"].dtype)
-        one = self.model.init_cache(1, self._cache_seq, dtype=kv_dtype)
-        batch = {"tokens": torch.as_tensor(toks)[None].to(self.model.device)}
+        enc_seq = self.model.enc_seq(self.max_seq)
+        one = self.model.init_cache(1, self._cache_seq, enc_seq=enc_seq,
+                                    dtype=kv_dtype)
+        dev = self.model.device
+        batch = {"tokens": torch.as_tensor(toks)[None].to(dev)}
+        if enc_seq:
+            batch["frames"] = frames_row(getattr(r, "frames", None), enc_seq,
+                                         self.model.cfg.d_model)[None].to(dev)
         logits, one = self.model.prefill(self.params, batch, one)
         self._prefill.note_shape((1, len(toks)))
         self._dispatch("prefill")

@@ -64,11 +64,24 @@ def first_divergence(a_tokens, b_tokens) -> Optional[int]:
     return None if len(a_tokens) == len(b_tokens) else n
 
 
-def exact_margin(model, params, prompt_tokens, prefix) -> float:
+def _enc_batch(model, batch, frames, enc_seq: int):
+    """An encoder-decoder's batch gains the request's frames (zeros, which
+    the encoder maps to zero memory, where it has none); other kinds'
+    batches pass through."""
+    from repro_torch.models.transformer import ENCDEC_KINDS
+    from repro_torch.serving.engine import frames_row
+    if model.cfg.kind not in ENCDEC_KINDS:
+        return batch
+    f = frames_row(frames, enc_seq, model.cfg.d_model)
+    return dict(batch, frames=f[None].to(model.device))
+
+
+def exact_margin(model, params, prompt_tokens, prefix, frames=None) -> float:
     """Top-2 logit margin of the EXACT-LENGTH path at the position that
     emitted token `len(prefix)`: prefill `prompt + prefix` at its true
     length (batch 1, no padding) on the port's model and measure how
-    decided the model was.
+    decided the model was. An encoder-decoder's prefill takes the
+    request's `frames` (the reference's has none and raises there).
 
     This is the reference the flip classifier trusts: the exact-length
     forward is the numerics both engines are approximating, so its margin
@@ -78,23 +91,27 @@ def exact_margin(model, params, prompt_tokens, prefix) -> float:
         np.asarray(list(prefix), np.int32),
     ]) if len(prefix) else np.asarray(prompt_tokens, np.int32)
     s = int(toks.shape[0])
-    cache = model.init_cache(1, s + 1)
+    enc_seq = max(model.enc_seq(s + 1), 1)
+    cache = model.init_cache(1, s + 1, enc_seq=enc_seq)
     tokens = torch.as_tensor(toks[None, :]).to(model.device)
-    logits, _ = model.prefill(params, {"tokens": tokens}, cache)
+    batch = _enc_batch(model, {"tokens": tokens}, frames, enc_seq)
+    logits, _ = model.prefill(params, batch, cache)
     row = logits[0].double().cpu().numpy()
     top2 = np.partition(row, -2)[-2:]
     return float(top2[1] - top2[0])
 
 
-def engine_margin(engine, prompt_tokens, prefix) -> float:
+def engine_margin(engine, prompt_tokens, prefix, frames=None) -> float:
     """Top-2 logit margin at the position that emitted token `len(prefix)`,
     replayed along `engine`'s own layout (`_engine_logits`)."""
-    row = _engine_logits(engine, prompt_tokens, prefix).double().numpy()
+    row = _engine_logits(engine, prompt_tokens, prefix,
+                         frames).double().numpy()
     top2 = np.partition(row, -2)[-2:]
     return float(top2[1] - top2[0])
 
 
-def _engine_logits(engine, prompt_tokens, prefix) -> torch.Tensor:
+def _engine_logits(engine, prompt_tokens, prefix,
+                   frames=None) -> torch.Tensor:
     """The logits (vocab,) on the host at the position that emitted token
     `len(prefix)`, replayed along `engine`'s own layout at batch 1: the
     prompt prefilled as the engine prefills it (padded to its length
@@ -111,7 +128,9 @@ def _engine_logits(engine, prompt_tokens, prefix) -> torch.Tensor:
     its baseline): where a model's greedy tokens depend on that position,
     as a random-weight model's do at full width, `exact_margin` measures
     another function. Replays a request that ran without preemption (a
-    recompute re-prefills prompt + generated)."""
+    recompute re-prefills prompt + generated). An encoder-decoder's
+    prefill takes `frames` padded as the engine pads them (zeros where
+    there are none)."""
     from repro_torch.models import cache as cache_lib
     model, dev = engine.model, engine.model.device
     toks = np.asarray(prompt_tokens, np.int32)
@@ -123,8 +142,10 @@ def _engine_logits(engine, prompt_tokens, prefix) -> torch.Tensor:
                  "lengths": torch.as_tensor([n], dtype=torch.int32).to(dev)}
     else:
         batch = {"tokens": torch.as_tensor(toks[None]).to(dev)}
-    cache = model.init_cache(1, engine._cache_seq,
+    enc_seq = engine._prefill.enc_seq
+    cache = model.init_cache(1, engine._cache_seq, enc_seq=enc_seq,
                              dtype=engine._prefill.cache_dtype)
+    batch = _enc_batch(model, batch, frames, enc_seq)
     logits, cache = model.prefill(engine.params, batch, cache)
     for i, tok in enumerate(prefix):
         cache = cache_lib.with_lengths(cache, [n + 1 + i])
@@ -146,6 +167,8 @@ def audit_flips(model, params, out_a, out_b, tol: float = FLIP_TOL,
     classify every token-id mismatch. Returns one record per diverging
     request: rid, first diverging position, the exact-path top-2 margin
     there, and the classification. An empty list means token-identical.
+    An encoder-decoder's margins are taken with each request's frames
+    (`frames` on the requests of `out_a`).
 
     With `engine`, the margin that classifies is `engine_margin` along
     that engine's layout (`model` and `params` must be the engine's); the
@@ -160,11 +183,13 @@ def audit_flips(model, params, out_a, out_b, tol: float = FLIP_TOL,
         if pos is None:
             continue
         prefix = ra.output_tokens[:pos]
-        margin = exact_margin(model, params, ra.prompt_tokens, prefix)
+        frames = getattr(ra, "frames", None)
+        margin = exact_margin(model, params, ra.prompt_tokens, prefix,
+                              frames)
         rec = {"rid": int(ra.rid), "position": int(pos)}
         if engine is not None:
             rec["exact_margin"] = margin
-            margin = engine_margin(engine, ra.prompt_tokens, prefix)
+            margin = engine_margin(engine, ra.prompt_tokens, prefix, frames)
         rec["margin"] = margin
         rec["classification"] = classify_flip(margin, tol)
         flips.append(rec)

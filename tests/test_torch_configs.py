@@ -24,7 +24,7 @@ import torch
 
 from repro.configs import get_smoke_config as j_smoke
 from repro.models import Model as JModel
-from repro_torch.bridge import from_numpy, init_params
+from repro_torch.bridge import from_numpy, init_params, to_numpy
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.models import Model
 
@@ -70,6 +70,40 @@ def test_config_matches_reference(arch):
         dataclasses.asdict(j_config(arch))
     assert dataclasses.asdict(get_smoke_config(arch)) == \
         dataclasses.asdict(j_smoke(arch))
+
+
+#: full-width parameter counts (``ModelConfig.param_count``)
+MULTIMODAL = {"seamless-m4t-medium": 977_769_472,
+              "pixtral-12b": 12_247_782_400}
+
+
+@pytest.mark.parametrize("arch", sorted(MULTIMODAL))
+def test_multimodal_config_matches_reference(arch):
+    from repro.configs import get_config as j_config
+    assert arch in ARCH_IDS
+    for port, ref in ((get_config(arch), j_config(arch)),
+                      (get_smoke_config(arch), j_smoke(arch))):
+        assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+        assert port.param_count() == ref.param_count()
+        assert port.active_param_count() == ref.active_param_count()
+    assert get_config(arch).param_count() == MULTIMODAL[arch]
+
+
+@pytest.mark.parametrize("arch", sorted(MULTIMODAL))
+def test_multimodal_init_params_tree_matches_reference(arch):
+    jcfg = j_smoke(arch)
+    jp = JModel(jcfg, impl="ref").init(jax.random.PRNGKey(0))
+    tp = init_params(get_smoke_config(arch), torch.Generator().manual_seed(0),
+                     device="cpu")
+    assert _shapes(tp) == _shapes(jax.tree.map(np.asarray, jp))
+    # the bridge carries every leaf both ways, bitwise
+    back = to_numpy(from_numpy(jax.tree.map(np.asarray, jp), device="cpu"))
+    flat = jax.tree_util.tree_leaves_with_path(jp)
+    for path, leaf in flat:
+        node = back
+        for key in path:
+            node = node[key.key]
+        np.testing.assert_array_equal(node, np.asarray(leaf))
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -16,7 +16,9 @@ split-KV edges (lengths at a split boundary and either side of it, a
 window that empties whole splits, the in-kernel merge's counters over two
 calls in a row, a launch from another thread, as the server's engine
 makes) and the tensor-core flash body (bf16; f32 runs the CUDA-core body)
-are covered case by case, hd 80 included. Mamba-2 runs on
+are covered case by case, hd 80 included, and so are bidirectional flash
+with Sq != Sk and with Sq = 1 (an encoder-decoder's cross-attention at
+prefill and at decode). Mamba-2 runs on
 the scan kernel through ``ops.ssd_scan_args`` and is held against the plain
 Mamba-2 recurrence at the scan's tolerances, N 64 and D 5120 included.
 """
@@ -80,7 +82,9 @@ DECODE_SHAPES = [(3, 300, 8, 2, 64), (2, 64, 4, 4, 32),
                  (8, 1024, 16, 16, 128),
                  # a speculative engine's caches, max_seq + k + 1 deep: the
                  # llama3-8b target and the 4/2-head hd-32 foreign draft
-                 (8, 1028, 32, 8, 128), (8, 1028, 4, 2, 32)]
+                 (8, 1028, 32, 8, 128), (8, 1028, 4, 2, 32),
+                 # seamless-m4t-medium's decoder self-attention: G = 1, hd 64
+                 (8, 1024, 16, 16, 64)]
 
 
 @pytest.mark.parametrize("shape", DECODE_SHAPES)
@@ -292,6 +296,12 @@ FLASH_CASES = [
     (1, 64, 64, 16, 16, 128, True, None, None, None),
     # the foreign draft's bucketed prefill: 4/2 heads of hd 32
     (1, 512, 512, 4, 2, 32, True, [389], None, None),
+    # seamless-m4t-medium (H = KV = 16, hd 64): the encoder's
+    # bidirectional self-attention, cross-attention at prefill (a 512
+    # bucket of queries over 256 encoder keys) and at decode (Sq = 1)
+    (4, 256, 256, 16, 16, 64, False, None, None, None),
+    (2, 512, 256, 16, 16, 64, False, [256, 256], None, None),
+    (8, 1, 256, 16, 16, 64, False, [256] * 8, None, None),
 ]
 
 
@@ -737,6 +747,53 @@ def test_moe_engine_on_card_matches_plain_path(dev):
         assert engs[1].preemptions > 0
         assert engs[1].physical_pages == ("page_size" in kw)
         assert tcuda.launches["flash_attention"] > n0
+        assert timing_fingerprint(outs[0]) == timing_fingerprint(outs[1])
+        flips = audit_flips(cpu, params, outs[0], outs[1])
+        assert all_flips_documented(flips), flips
+
+
+def test_encdec_and_vlm_engines_on_card_match_plain_path(dev):
+    """The seamless-m4t-medium smoke engine (frames from each rid; flash
+    in the encoder, the decoder and the cross-attention, decode per step)
+    and the pixtral-12b smoke engine (paged and contiguous) on the card
+    against the same engines on the CPU, f32."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import (TPU_V5E, LatencyModel, SchedulerConfig,
+                                  make_scheduler)
+    from repro_torch.models import Model
+    from repro_torch.serving import (ServingEngine, all_flips_documented,
+                                     audit_flips, synthetic_frames,
+                                     timing_fingerprint)
+    for arch, kw in (("seamless-m4t-medium", dict(preemption_mode="swap")),
+                     ("seamless-m4t-medium",
+                      dict(preemption_mode="recompute")),
+                     ("pixtral-12b", dict(page_size=16)),
+                     ("pixtral-12b", dict())):
+        cfg = get_smoke_config(arch)
+        cpu = Model(cfg, device="cpu")
+        params = cpu.init(torch.Generator().manual_seed(0))
+        gpu = Model(cfg, device=dev)
+        gparams = _to(params, dev)
+        outs, engs = [], []
+        n0 = dict(tcuda.launches)
+        for m, p in ((cpu, params), (gpu, gparams)):
+            trace = _smoke_trace(cfg)
+            if cfg.kind == "audio":
+                for r in trace:
+                    r.frames = synthetic_frames(cfg, [r.rid], 16)[0]
+            lat = LatencyModel(cfg, TPU_V5E)
+            sched = make_scheduler("andes", 100, lat,
+                                   SchedulerConfig(delta_t=2.0))
+            eng = ServingEngine(m, p, sched, lat, num_slots=4, max_seq=64,
+                                capacity_tokens=100, device=m.device, **kw)
+            outs.append(eng.run(trace, max_iterations=4000))
+            engs.append(eng)
+        assert engs[1].preemptions > 0
+        assert engs[1].physical_pages == ("page_size" in kw)
+        ran = {k: tcuda.launches[k] - n0[k] for k in n0}
+        assert ran["flash_attention"] > 0
+        assert ran["paged_decode_attention" if "page_size" in kw
+                   else "decode_attention"] > 0
         assert timing_fingerprint(outs[0]) == timing_fingerprint(outs[1])
         flips = audit_flips(cpu, params, outs[0], outs[1])
         assert all_flips_documented(flips), flips

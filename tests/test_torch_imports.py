@@ -57,6 +57,8 @@ def test_port_sources_found():
                  "src/repro_torch/cluster/cluster_sim.py",
                  "src/repro_torch/serving/speculative.py",
                  "src/repro_torch/models/moe.py",
+                 "src/repro_torch/serving/modality.py",
+                 "src/repro_torch/serving/frontend.py",
                  "src/repro_torch/workload/sharegpt.py", "chip_smoke.py"):
         assert want in names, want
 
@@ -88,6 +90,8 @@ def test_server_import_leaves_jax_out():
             "import repro_torch.kernels.cuda, repro_torch.bridge\n"
             "import repro_torch.cluster, repro_torch.workload\n"
             "import repro_torch.serving.request\n"
+            "import repro_torch.serving.modality\n"
+            "import repro_torch.serving.frontend\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\n"
