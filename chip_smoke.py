@@ -9,8 +9,9 @@ Qwen1.5-MoE-A2.7B, SeamlessM4T-medium and Pixtral-12B configs with random
 bf16 weights made from a seed, the
 HTTP/SSE server over the Llama-3-8B engine on the wall clock, the cluster
 layer over engine-backed Llama-3-8B replicas, and speculative decoding
-over the Llama-3-8B target — and holds every hand-written CUDA kernel on
-those paths against its plain PyTorch version. Phases, in order:
+over the Llama-3-8B target, and training of the full-width Granite-3-2B
+— and holds every hand-written CUDA kernel on those paths against its
+plain PyTorch version. Phases, in order:
 
 1. the device: name and power limit from nvidia-smi;
 2. build the CUDA kernels (one nvcc per source, in parallel), and count
@@ -165,7 +166,29 @@ those paths against its plain PyTorch version. Phases, in order:
    group, decode or paged decode = 40 per iteration; then one prefill
    with a 64-patch prefix, kernels against the plain path, whose cache
    length counts the patches. Each prints the walls per decode iteration
-   and prefill group and profiled windows.
+   and prefill group and profiled windows;
+13. training: (13a) the flash kernel's `lse` and the two backward kernels
+   (dK/dV and dQ, ``csrc/flash_attention_bwd.cu``) against
+   ``attention_lse_ref`` / ``attention_bwd_ref`` in f32 (1e-4) and bf16
+   (2e-2, both relative to max |grad|) at granite-3-2b's training shape
+   (8 x 512, H 32, KV 8, hd 64, causal), llama3's hd 128, zamba2's hd 80,
+   seamless's bidirectional encoder and cross-attention with ragged
+   lengths and a window, each timed with L2 flushed beside its bound (5
+   products of 2 hd FLOPs per attended pair and head over the f32 or
+   bf16 peak, against bytes), the plain version and SDPA's backward
+   (``torch.autograd.grad`` of ``scaled_dot_product_attention``, a
+   yardstick only); (13b) smoke-size training, f32 with TF32 off, on the
+   card against the CPU: the loss and every gradient of one remat loss
+   and one train step (grad norm, params after AdamW) for llama3-8b,
+   granite-3-2b, qwen2-moe, seamless-m4t-medium and pixtral-12b, the
+   backward launches one per attention call; falcon-mamba must refuse
+   grad mode on the card; 50 llama3 steps must lower the loss by 1.0;
+   (13c) full-width, full-depth granite-3-2b, f32 params and AdamW,
+   remat, 8 x 512 from ``packed_batches``, 10 steps through
+   ``build_train_step``: finite loss and grad norm every step, flash 80
+   (40 + 40 recomputed) and dQ = dK/dV = 40 a step, the wall per step,
+   tokens/s, peak memory, a profiled step (busy time, the backward
+   kernels' share) and a checkpoint saved and restored bitwise.
 
 It prints the kernels' JSON line, the card line, and last the result
 line {"ok": true, "device": {...}}. With no CUDA device, or outside a
@@ -177,6 +200,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -2421,6 +2445,419 @@ def check_vlm_engine(torch):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 13: training
+# ---------------------------------------------------------------------------
+
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # relative to max |grad|
+BWD_KERNELS = ("flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
+# products of 2 hd FLOPs per attended (query, key, head) pair: the whole
+# backward needs S, dP, dV, dK and dQ; dK/dV needs the first four, dQ S,
+# dP and dQ (each kernel recomputes S and dP)
+BWD_PRODUCTS = {"backward": 5, "flash_attention_bwd_dkdv": 4,
+                "flash_attention_bwd_dq": 3}
+BWD_CASES = (
+    # (label, b, sq, sk, h, kv, hd, causal, lengths, window)
+    ("granite-3-2b training: 8 x 512, H 32, KV 8, hd 64, causal",
+     8, 512, 512, 32, 8, 64, True, None, None),
+    ("llama3-8b heads: 4 x 512, H 32, KV 8, hd 128, causal",
+     4, 512, 512, 32, 8, 128, True, None, None),
+    ("zamba2 heads: 4 x 512, H = KV = 32, hd 80, causal",
+     4, 512, 512, 32, 32, 80, True, None, None),
+    ("seamless encoder: 4 x 256, H = KV = 16, hd 64, bidirectional, ragged",
+     4, 256, 256, 16, 16, 64, False, [256, 200, 131, 64], None),
+    ("seamless cross: 2 x 512 over 256, H = KV = 16, hd 64, ragged",
+     2, 512, 256, 16, 16, 64, False, [256, 190], None),
+    ("window 128: 4 x 512, H 32, KV 8, hd 64, causal",
+     4, 512, 512, 32, 8, 64, True, None, 128),
+)
+TRAIN_ARCHS = ("llama3-8b", "granite-3-2b", "qwen2-moe-a2.7b",
+               "seamless-m4t-medium", "pixtral-12b")
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
+GRANITE_STEPS = 10
+GRANITE_BATCH = (8, 512)
+
+
+def _bwd_launches(kc, q, k, v, out, lse, dout, *, causal, window,
+                  lengths):
+    """{kernel name: one launch of that backward kernel alone}, each
+    through `kc._run` with the arguments `kc.flash_attention_bwd` gives
+    it, on gradient buffers allocated once, so each kernel can be timed
+    on its own (the wrapper always launches both)."""
+    b, sq, h, hd = q.shape
+    _, sk, kv, _ = k.shape
+    dq, dk, dv = (x.new_empty(x.shape) for x in (q, k, v))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), dout.data_ptr(),
+            lengths.data_ptr() if lengths is not None else None)
+    dims = (b, sq, sk, h, kv, hd, int(bool(causal)), kc._window(window),
+            kc._scale(None, hd), kc._stream())
+    code = kc._dtype("flash_attention_bwd", q)
+    return {
+        "flash_attention_bwd_dkdv": lambda: kc._run(
+            "flash_attention_bwd_dkdv", None, code, *ptrs, dk.data_ptr(),
+            dv.data_ptr(), *dims),
+        "flash_attention_bwd_dq": lambda: kc._run(
+            "flash_attention_bwd_dq", None, code, *ptrs, dq.data_ptr(),
+            *dims)}
+
+
+def check_backward_kernels(torch):
+    """13a: the flash kernel's lse and the two backward kernels against
+    attention_lse_ref / attention_bwd_ref at training shapes, f32 and
+    bf16, each timed (L2 flushed) beside its bound, the plain version
+    and SDPA's backward (torch.autograd.grad of
+    F.scaled_dot_product_attention; a yardstick only). Returns the JSON
+    rows of the two kernels at granite's f32 training shape."""
+    from repro_torch.kernels import cuda as kc
+    from repro_torch.kernels import ref
+
+    flush = _L2Flush(torch)
+    sdpa = _sdpa(torch)
+    gen = torch.Generator().manual_seed(1)
+    rows = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        tol = BWD_TOL[name]
+        peak = F32_FLOPS if dt == torch.float32 else BF16_FLOPS
+        for label, b, sq, sk, h, kv, hd, causal, lens, window in BWD_CASES:
+            def rnd(*shape):
+                return torch.randn(shape, generator=gen).to("cuda", dt)
+            q, k, v, dout = (rnd(b, sq, h, hd), rnd(b, sk, kv, hd),
+                             rnd(b, sk, kv, hd), rnd(b, sq, h, hd))
+            lengths = (None if lens is None else
+                       torch.tensor(lens, dtype=torch.int32).cuda())
+            kw = dict(causal=causal, window=window, lengths=lengths)
+            out, lse = kc.flash_attention(q, k, v, return_lse=True, **kw)
+            lse_ref = ref.attention_lse_ref(q, k, v, **kw)
+            empty = torch.isinf(lse_ref)
+            if not torch.equal(torch.isinf(lse), empty):
+                fail(f"13a {label} {name}: lse's empty rows differ")
+            lse_err = (lse - lse_ref)[~empty].abs().max().item()
+            grads = kc.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+            expect = ref.attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+            # (dq, dk, dv): |difference| and its ratio to max |grad|
+            diffs = [(g.float() - e.float()).abs().max().item()
+                     for g, e in zip(grads, expect)]
+            rels = [d / e.float().abs().max().item()
+                    for d, e in zip(diffs, expect)]
+            abs_err, err = max(diffs), max(rels)
+            if not (err <= tol and lse_err <= tol):
+                fail(f"13a {label} {name}: backward disagrees with its plain "
+                     f"version: {err:.3e} (lse {lse_err:.3e}, tol {tol})")
+            kp = torch.arange(sk, device="cuda")[None, None, :]
+            qp = torch.arange(sq, device="cuda")[None, :, None]
+            vis = torch.ones((b, sq, sk), dtype=torch.bool, device="cuda")
+            if causal:
+                vis &= kp <= qp
+            if lengths is not None:
+                vis &= kp < lengths[:, None, None]
+            if window is not None:
+                vis &= kp > qp - window
+            pairs = int(vis.sum()) * h
+            isz = q.element_size()
+            n_in = (3 * b * sq * h * hd + 2 * b * sk * kv * hd) * isz \
+                + b * h * sq * 4
+            n_out = {"flash_attention_bwd_dkdv": 2 * b * sk * kv * hd * isz,
+                     "flash_attention_bwd_dq": b * sq * h * hd * isz}
+            n_out["backward"] = sum(n_out.values())
+            t = {"backward": time_ms(torch, lambda: kc.flash_attention_bwd(
+                q, k, v, out, lse, dout, **kw), flush)}
+            for kname, launch in _bwd_launches(
+                    kc, q, k, v, out, lse, dout, **kw).items():
+                t[kname] = time_ms(torch, launch, flush)
+            plain_ms = time_ms(torch, lambda: ref.attention_bwd_ref(
+                q, k, v, out, lse, dout, **kw), flush, iters=5, warmup=1)
+            lib_ms = None
+            if sdpa is not None:
+                qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_()
+                              for x in (q, k, v))
+                # a mask only where lengths or a window need one: with
+                # it SDPA cannot skip the tiles above the diagonal
+                mask = ({"is_causal": True} if causal and lengths is None
+                        and window is None else {"attn_mask": vis[:, None]})
+                with torch.enable_grad():
+                    o = sdpa(qs, ks, vs, enable_gqa=True, **mask)
+                go = dout.transpose(1, 2)
+                lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+                    o, (qs, ks, vs), go, retain_graph=True), flush)
+                del o, qs, ks, vs
+            bound = {key: bound_ms(n_in + n_out[key],
+                                   (BWD_PRODUCTS[key] * 2 * hd * pairs,
+                                    peak))
+                     for key in t}
+            print(f"  13a {label}, {name}: max|err| {abs_err:.3e}, "
+                  f"max|err|/max|grad| {err:.3e}, "
+                  f"lse {lse_err:.3e} (tol {tol}); backward "
+                  f"{t['backward']:.4f} ms (dK/dV "
+                  f"{t['flash_attention_bwd_dkdv']:.4f} + dQ "
+                  f"{t['flash_attention_bwd_dq']:.4f}), bound "
+                  f"{bound['backward'][0]:.4f} ms ({bound['backward'][1]}), "
+                  f"plain {plain_ms:.4f} ms, SDPA backward "
+                  f"{('%.4f ms' % lib_ms) if lib_ms is not None else 'n/a'}",
+                  flush=True)
+            if label.startswith("granite") and dt == torch.float32:
+                # dK/dV's gradients are the last two, dQ's the first
+                for kname, sl in zip(BWD_KERNELS, (slice(1, 3),
+                                                   slice(0, 1))):
+                    rows[kname] = dict(
+                        max_abs_err=max(diffs[sl]), max_rel_err=max(rels[sl]),
+                        ms=t[kname], plain_ms=plain_ms,
+                        bound_ms=bound[kname][0], bound_by=bound[kname][1],
+                        library_ms=lib_ms)
+            del q, k, v, dout, out, lse, grads, expect, vis
+    del flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _train_batch(torch, cfg, b, s, seed, device):
+    """tokens, next-token labels (a few set to -1), and frames or patch
+    embeddings where the kind takes them, made with numpy."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    labels = np.roll(tokens, -1, axis=1)
+    labels[0, :3] = -1
+    batch = {"tokens": tokens, "labels": labels}
+    if cfg.kind in ("encdec", "audio"):
+        batch["frames"] = (rng.normal(size=(b, s, cfg.d_model))
+                           * 0.1).astype(np.float32)
+    if cfg.kind == "vlm":
+        batch["patch_embeds"] = (rng.normal(size=(b, 4, cfg.d_model))
+                                 * 0.1).astype(np.float32)
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def _excess(got, want, rtol):
+    """max over elements of |got - want| - rtol |want|: allclose passes
+    when it is at most atol"""
+    return ((got.float().cpu() - want.float()).abs()
+            - rtol * want.float().abs()).max().item()
+
+
+def check_small_training(torch):
+    """13b: smoke-size training, f32, on the card (kernels) against the
+    same on the CPU (plain versions): the loss and every gradient of one
+    remat loss, the backward launches equal to the attention calls, then
+    one train step (loss, grad norm, params after AdamW); falcon-mamba
+    must refuse to train on the card; 50 llama3 steps must lower the
+    loss by more than 1.0."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import cuda as kc
+    from repro_torch.models import Model
+    from repro_torch.training import (OptimizerConfig, build_train_step,
+                                      init_opt_state, packed_batches,
+                                      value_and_grad)
+    from repro_torch.training.optimizer import leaves
+
+    print(f"  torch.backends.cuda.matmul.allow_tf32 = "
+          f"{torch.backends.cuda.matmul.allow_tf32} (f32 products in f32)",
+          flush=True)
+    for arch in TRAIN_ARCHS:
+        cfg = get_smoke_config(arch)
+        n_attn = (cfg.num_encoder_layers + 2 * cfg.num_layers
+                  if cfg.kind in ("encdec", "audio") else cfg.num_layers)
+        models = {d: Model(cfg, remat=True, device=d) for d in ("cpu", "cuda")}
+        params = {"cpu": models["cpu"].init(torch.Generator().manual_seed(0))}
+        params["cuda"] = _to(params["cpu"], "cuda")
+        batch = {d: _train_batch(torch, cfg, 2, 32, 1, d)
+                 for d in ("cpu", "cuda")}
+        loss_c, grads_c = value_and_grad(models["cpu"], params["cpu"],
+                                         batch["cpu"])
+        kc.reset_launches()
+        loss_g, grads_g = value_and_grad(models["cuda"], params["cuda"],
+                                         batch["cuda"])
+        n = dict(kc.launches)
+        want = {"flash_attention": 2 * n_attn,
+                "flash_attention_bwd_dq": n_attn,
+                "flash_attention_bwd_dkdv": n_attn}
+        if any(n[k] != v for k, v in want.items()) or n["decode_attention"]:
+            fail(f"13b {arch}: launches {n}, expected {want}")
+        loss_err = abs(loss_g.item() - loss_c.item()) / abs(loss_c.item())
+        grad_err = max(_excess(g, c, 2e-4)
+                       for g, c in zip(leaves(grads_g), leaves(grads_c)))
+        steps = {d: build_train_step(models[d], OptimizerConfig(**TRAIN_OPT))
+                 for d in ("cpu", "cuda")}
+        met = {}
+        for d in ("cpu", "cuda"):
+            opt = init_opt_state(params[d])
+            params[d], _, met[d] = steps[d](params[d], opt, batch[d])
+        gn_err = abs(met["cuda"]["grad_norm"].item()
+                     - met["cpu"]["grad_norm"].item()) \
+            / met["cpu"]["grad_norm"].item()
+        p_err = max(_excess(g, c, 2e-4) for g, c in zip(
+            leaves(params["cuda"]), leaves(params["cpu"])))
+        print(f"  13b {arch} smoke: loss {loss_g.item():.6f} vs CPU "
+              f"{loss_c.item():.6f} (rel {loss_err:.2e}), gradients "
+              f"max(|diff| - 2e-4|cpu|) {grad_err:.2e}, grad norm rel "
+              f"{gn_err:.2e}, params after AdamW {p_err:.2e} (atol 2e-5); "
+              f"launches flash {n['flash_attention']} = 2 x {n_attn} "
+              f"attention calls (remat), dQ {n['flash_attention_bwd_dq']}, "
+              f"dK/dV {n['flash_attention_bwd_dkdv']}", flush=True)
+        if not (loss_err <= 1e-5 and grad_err <= 2e-5 and gn_err <= 1e-5
+                and p_err <= 2e-5):
+            fail(f"13b {arch}: the card's train step disagrees with the CPU's")
+    cfg = get_smoke_config("falcon-mamba-7b")
+    m = Model(cfg, device="cuda")
+    p = m.init(torch.Generator("cuda").manual_seed(0))
+    try:
+        build_train_step(m, OptimizerConfig(**TRAIN_OPT))(
+            p, init_opt_state(p), _train_batch(torch, cfg, 2, 32, 1, "cuda"))
+    except RuntimeError as e:
+        if "selective_scan has no backward" not in str(e):
+            raise
+        print(f"  13b falcon-mamba smoke refuses to train on the card: {e}",
+              flush=True)
+    else:
+        fail("13b falcon-mamba trained on the card without a scan backward")
+    cfg = get_smoke_config("llama3-8b")
+    m = Model(cfg, device="cuda")
+    p = m.init(torch.Generator("cuda").manual_seed(0))
+    opt = init_opt_state(p)
+    step = build_train_step(m, OptimizerConfig(lr=1e-3, warmup_steps=5,
+                                               total_steps=50))
+    it = packed_batches(cfg.vocab_size, 8, 64, seed=0)
+    losses = []
+    for _ in range(50):
+        batch = {k: torch.from_numpy(v).cuda() for k, v in next(it).items()}
+        p, opt, met = step(p, opt, batch)
+        losses.append(met["loss"].item())
+    print(f"  13b llama3 smoke, 50 steps on the card: loss {losses[0]:.4f} "
+          f"-> {losses[-1]:.4f}", flush=True)
+    if not losses[-1] < losses[0] - 1.0:
+        fail("13b llama3 smoke: 50 steps did not lower the loss by 1.0")
+
+
+def check_granite_training(torch, card):
+    """13c: full-width, full-depth granite-3-2b (40 layers, d 2048, 32/8
+    heads of hd 64, vocab 49155, tied), f32 params and AdamW, remat on,
+    batch 8 x 512 from packed_batches, GRANITE_STEPS steps through
+    build_train_step, the launch counters set to 0 before each step and
+    read after: flash 80 (40 + 40 recomputed), dQ = dK/dV = 40. Then a
+    checkpoint saved and restored bitwise. Returns the launches."""
+    import tempfile
+
+    from repro_torch.configs.granite_3_2b import CONFIG
+    from repro_torch.kernels import cuda as kc
+    from repro_torch.models import Model
+    from repro_torch.training import (OptimizerConfig, build_train_step,
+                                      init_train_state, packed_batches,
+                                      restore_checkpoint, save_checkpoint)
+    from repro_torch.training.optimizer import leaves
+
+    t_phase = time.perf_counter()
+    model = Model(CONFIG, device="cuda")
+    params, opt = init_train_state(
+        model, torch.Generator("cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in leaves(params))
+    L = CONFIG.num_layers
+    b, s = GRANITE_BATCH
+    step = build_train_step(model, OptimizerConfig(
+        lr=3e-4, warmup_steps=2, total_steps=GRANITE_STEPS))
+    data = packed_batches(CONFIG.vocab_size, b, s, seed=0)
+    total = dict.fromkeys(("flash_attention",) + BWD_KERNELS, 0)
+    want = {"flash_attention": 2 * L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkdv": L}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"  granite-3-2b: {n_params / 1e9:.3f} B params, f32 params + "
+          f"grads + AdamW moments; batch {b} x {s}; init "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    walls, losses = [], []
+    for i in range(GRANITE_STEPS):
+        batch = {k: torch.from_numpy(v).cuda() for k, v in next(data).items()}
+        kc.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, batch)
+        loss, gnorm = met["loss"].item(), met["grad_norm"].item()
+        walls.append(time.perf_counter() - t0)
+        losses.append(loss)
+        n = {k: kc.launches[k] for k in total}
+        if n != want or kc.launches["decode_attention"]:
+            fail(f"13c granite step {i + 1}: launches {dict(kc.launches)}, "
+                 f"expected {want}")
+        for k in total:
+            total[k] += n[k]
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            fail(f"13c granite step {i + 1}: loss {loss}, grad norm {gnorm}")
+        print(f"  13c step {i + 1}: loss {loss:.4f}, grad norm {gnorm:.4f}, "
+              f"wall {walls[-1]:.3f} s", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    steady = walls[1:]
+    wall = sum(steady) / len(steady)
+    print(f"  13c granite-3-2b ({card}): {wall:.3f} s per step (steps "
+          f"2-{GRANITE_STEPS}; step 1 {walls[0]:.3f} s), "
+          f"{b * s / wall:.0f} tokens/s, peak memory allocated "
+          f"{peak / 1e9:.2f} GB; loss {losses[0]:.4f} -> {losses[-1]:.4f}",
+          flush=True)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(data).items()}
+    profile_train_step(torch, lambda: step(params, opt, batch))
+    with tempfile.TemporaryDirectory() as d:
+        path = str(Path(d) / "granite.npz")
+        t0 = time.perf_counter()
+        save_checkpoint(path, params, opt, step=GRANITE_STEPS + 1)
+        t_save = time.perf_counter() - t0
+        size = Path(path).stat().st_size
+        t0 = time.perf_counter()
+        p2, o2, got = restore_checkpoint(path, params, opt)
+        t_load = time.perf_counter() - t0
+        same = got == GRANITE_STEPS + 1 and all(
+            torch.equal(x, y) for x, y in zip(
+                leaves({"p": params, "mu": opt.mu, "nu": opt.nu,
+                        "s": opt.step}),
+                leaves({"p": p2, "mu": o2.mu, "nu": o2.nu, "s": o2.step})))
+        del p2, o2
+    print(f"  13c checkpoint: {size / 1e9:.2f} GB saved in {t_save:.1f} s, "
+          f"restored in {t_load:.1f} s, bitwise {same}", flush=True)
+    if not same:
+        fail("13c granite checkpoint did not restore bitwise")
+    print(f"  phase 13c wall {time.perf_counter() - t_phase:.2f} s; "
+          f"launches {total}", flush=True)
+    del params, opt, model
+    torch.cuda.empty_cache()
+    return total
+
+
+def profile_train_step(torch, fn):
+    """One train step under torch.profiler: wall, card-busy time, idle
+    share, and the backward kernels' and the flash forward's share of the
+    busy time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def dev_us(e):
+        return (getattr(e, "self_device_time_total", 0)
+                or getattr(e, "self_cuda_time_total", 0))
+
+    kern = sorted((e for e in prof.key_averages() if e.device_type == cuda),
+                  key=dev_us, reverse=True)
+    busy_ms = sum(dev_us(e) for e in kern) / 1e3
+    if busy_ms <= 0:
+        print(f"  13c profile: device time not measured by the profiler "
+              f"(wall {wall_ms:.1f} ms)", flush=True)
+        return
+    share = {lab: sum(dev_us(e) for e in kern if key in e.key) / 1e3
+             for lab, key in (("backward kernels", "bwd_"),
+                              ("flash forward", "flash_kernel"))}
+    print(f"  13c profiled step (torch.profiler, on): wall {wall_ms:.1f} ms, "
+          f"card busy {busy_ms:.1f} ms, idle share "
+          f"{1 - busy_ms / wall_ms:.3f}, {sum(e.count for e in kern)} "
+          f"kernels; " + ", ".join(
+              f"{lab} {ms:.1f} ms ({ms / busy_ms:.3f} of busy)"
+              for lab, ms in share.items()) + "; top: " + "; ".join(
+              f"{e.key[:50]} {dev_us(e) / 1e3:.1f} ms x{e.count}"
+              for e in kern[:5]), flush=True)
+
+
 def profile_window(torch, label, fn, steps):
     """Trace fn() with torch.profiler: card-busy time (sum of kernel
     device time) against the synchronized host wall time of the window,
@@ -2506,6 +2943,14 @@ SOURCES = {
                         "src/repro/kernels/flash_attention.py:109"),
     "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
                        "src/repro/kernels/selective_scan.py:62"),
+    # no Pallas counterpart: the reference differentiates attention_ref
+    # through XLA
+    "flash_attention_bwd_dkdv": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/ref.py:27"),
+    "flash_attention_bwd_dq": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/ref.py:27"),
 }
 
 
@@ -2555,51 +3000,58 @@ def main() -> None:
     check_small_engine(torch)
     check_small_spec_moe(torch)
 
+    launches = {}
+
+    def add(counts):
+        """Add one phase's launches (each phase counts from 0)."""
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
     print("[5] full-width llama3-8b engine (bf16):", flush=True)
-    launches, llama, llama_params = check_full_engine(torch)
+    counts, llama, llama_params = check_full_engine(torch)
+    add(counts)
     torch.cuda.empty_cache()
 
     print("[6] full-width falcon-mamba-7b engine (bf16):", flush=True)
-    launches.update(check_mamba_engine(torch))
+    add(check_mamba_engine(torch))
     torch.cuda.empty_cache()
 
     print("[7] full-width zamba2-2.7b engine (bf16):", flush=True)
-    for k, n in check_zamba2_engine(torch).items():
-        launches[k] += n
+    add(check_zamba2_engine(torch))
     torch.cuda.empty_cache()
 
     print("[8] the HTTP/SSE server over the full-width llama3-8b engine "
           f"(bf16, wall clock; {card}):", flush=True)
-    for k, n in check_server(torch, llama, llama_params).items():
-        launches[k] += n
+    add(check_server(torch, llama, llama_params))
     torch.cuda.empty_cache()
 
     print("[9] the cluster layer over engine-backed full-width llama3-8b "
           f"replicas (bf16, virtual clock; {card}):", flush=True)
-    for k, n in check_cluster(torch, llama, llama_params).items():
-        launches[k] += n
+    add(check_cluster(torch, llama, llama_params))
     torch.cuda.empty_cache()
 
     print("[10] speculative decoding over the full-width llama3-8b model "
           f"(bf16, k={SPEC_K}, virtual clock; {card}):", flush=True)
-    for k, n in check_speculative(torch, llama, llama_params, card).items():
-        launches[k] += n
+    add(check_speculative(torch, llama, llama_params, card))
     del llama, llama_params
     torch.cuda.empty_cache()
 
     print(f"[11] full-width qwen2-moe-a2.7b engine (bf16; {card}):",
           flush=True)
-    for k, n in check_moe_engine(torch, card).items():
-        launches[k] += n
+    add(check_moe_engine(torch, card))
     torch.cuda.empty_cache()
 
     print("[12] full-width seamless-m4t-medium and pixtral-12b engines "
           f"(bf16; {card}):", flush=True)
     for check in (check_encdec_engine, check_vlm_engine):
-        for k, n in check(torch).items():
-            launches[k] += n
+        add(check(torch))
         torch.cuda.empty_cache()
     check_server_cli()
+
+    print(f"[13] training ({card}):", flush=True)
+    rows.update(check_backward_kernels(torch))
+    check_small_training(torch)
+    add(check_granite_training(torch, card))
 
     kernels = []
     for name, (src, rep) in SOURCES.items():

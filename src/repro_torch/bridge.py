@@ -8,6 +8,9 @@ tensors, so a leaf's path and shape are the same on both sides.
 - ``from_numpy``: the reference's tree with numpy leaves (``np.asarray``
   of each JAX array) -> the port's dict of tensors on `device`.
 - ``to_numpy``: back (bf16 leaves widen to float32, numpy has no bf16).
+- ``opt_state_from_numpy`` / ``opt_state_to_numpy``: the optimizer state
+  (step, first and second moments) the same way, so a test can start
+  both packages' training from one state.
 - ``init_params``: fresh weights for every family, following the
   reference's init
   (``src/repro/models/transformer.py:39-121``, ``models/moe.py:init_moe``
@@ -58,6 +61,27 @@ def to_numpy(tree):
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy()
+
+
+def opt_state_from_numpy(opt, device="cuda"):
+    """The reference's optimizer state with numpy leaves (its
+    ``OptState(step, mu, nu)``, e.g. ``jax.tree.map(np.asarray, state)``)
+    -> the port's ``training.OptState`` on `device` (step int32, moments
+    f32)."""
+    from repro_torch.training.optimizer import OptState
+    dev = resolve_device(device)
+    return OptState(torch.tensor(int(np.asarray(opt.step)), dtype=torch.int32,
+                                 device=dev),
+                    from_numpy(opt.mu, dev, torch.float32),
+                    from_numpy(opt.nu, dev, torch.float32))
+
+
+def opt_state_to_numpy(opt):
+    """The port's ``OptState`` -> the same NamedTuple with numpy leaves
+    (step an int32 scalar), whose fields unpack in the reference's order:
+    ``repro.training.OptState(*opt_state_to_numpy(state))``."""
+    return type(opt)(np.asarray(int(opt.step), dtype=np.int32),
+                     to_numpy(opt.mu), to_numpy(opt.nu))
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
@@ -154,7 +178,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
                 "x_proj": stacked(L, (di, r + 2 * n)),
                 "dt_proj": stacked(L, (r, di), std=r ** -0.5),
                 "dt_bias": full(-2.0, L, di),
-                "A_log": a_log.expand(L, di, n).to(device=dev, dtype=dtype),
+                # a copy: an expanded view would alias one row across
+                # the stack and refuse in-place updates (AdamW)
+                "A_log": a_log.expand(L, di, n).to(device=dev, dtype=dtype,
+                                                   copy=True),
                 "D": ones(L, di),
                 "out_proj": stacked(L, (di, d)),
             },
@@ -180,7 +207,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
                 "conv_w": stacked(m, (k, di + 2 * n), std=0.1),
                 "conv_b": full(0.0, m, di + 2 * n),
                 "dt_bias": full(-2.0, m, nh),
-                "A_log": a_log.expand(m, nh).to(device=dev, dtype=dtype),
+                "A_log": a_log.expand(m, nh).to(device=dev, dtype=dtype,
+                                                copy=True),
                 "D": ones(m, nh),
                 "norm_scale": ones(m, di),
                 "out_proj": stacked(m, (di, d)),

@@ -28,6 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {
     "decode_attention": "decode_attention.cu",
     "flash_attention": "flash_attention.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
     "selective_scan": "selective_scan.cu",
 }
 HEADERS = ("attn_common.cuh",)

@@ -1,10 +1,12 @@
 // Shared helpers for the attention kernels: dtype conversion, vector loads,
-// the masking constant, the dtype codes of the plain C interface, and the
+// the masking constant and the mask itself (one copy for the forward and
+// backward kernels), the dtype codes of the plain C interface, and the
 // PTX wrappers for cp.async, ldmatrix and the bf16 tensor-core mma.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -97,6 +99,43 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a
       "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---- the mask, shared by the forward and backward kernels ----------------
+//
+// Macros, not functions: written as __forceinline__ functions the same
+// two expressions cost the 8-warp tensor-core forward 11-13% at 512-row
+// causal prefills (parent and change in one call, NVIDIA H100 80GB HBM3,
+// 700 W), which the expressions written out in place do not.
+
+// Whether the key at position kp is visible from the query at absolute
+// position qp: before the row's length, not after the query when causal,
+// inside the sliding window when there is one (window < 0: none).
+#define REPRO_ATTN_VISIBLE(CAUSAL, kp, qp, len, window) \
+  ((kp) < (len) && (!(CAUSAL) || (kp) <= (qp)) && ((window) < 0 || (kp) > (qp) - (window)))
+
+// The keys [kstart, kend) that queries at absolute positions [qlo, qhi)
+// can see, kstart rounded down to a multiple of the key tile bk: the
+// forward's and dQ's skip of fully masked key tiles.
+#define REPRO_ATTN_KEY_RANGE(CAUSAL, qlo, qhi, len, window, bk, kstart, kend) \
+  do {                                                                         \
+    kend = (len);                                                              \
+    if (CAUSAL) kend = min(kend, (qhi));                                       \
+    kstart = 0;                                                                \
+    if ((window) >= 0) kstart = max(0, (qlo) - (window) + 1);                  \
+    kstart = (kstart / (bk)) * (bk);                                           \
+  } while (0)
+
+// Its converse for dK/dV: the queries [qstart, qend) (positions = indices,
+// no offset) that can see a key in [k0, k1), qstart rounded down to a
+// multiple of the query tile bq.
+template <bool CAUSAL>
+__device__ __forceinline__ void attn_query_range(int k0, int k1, int sq, int window, int bq,
+                                                 int& qstart, int& qend) {
+  qstart = CAUSAL ? min(k0, sq) : 0;
+  qstart = (qstart / bq) * bq;
+  qend = sq;
+  if (window >= 0) qend = min(qend, k1 - 1 + window);
 }
 
 // two f32 -> one register of two bf16 (x in the low half), round to nearest

@@ -8,7 +8,12 @@
 // lengths[b] are masked) and `q_offset` (query i of row b sits at absolute
 // position q_offset[b] + i). Rows with nothing to attend (length 0, the
 // row-bucket padding rows of a grouped prefill) write zeros, the Pallas
-// convention (`l == 0 -> 1` in _flash_kernel).
+// convention (`l == 0 -> 1` in _flash_kernel). With a non-null `lse` the
+// kernel also writes each row's log-sum-exp of its scaled scores,
+// m + log(l), as f32 (B, H, Sq), and -inf for a row with nothing to
+// attend: what the backward kernels (flash_attention_bwd.cu) recompute
+// the probabilities from. The store is a template flag (LSE), so
+// serving, which passes null, runs bodies compiled without it.
 //
 // What bounds it on an H100: operations. A 512-token causal prefill does
 // ~2 * 512 / 2 FLOPs per byte of K/V read per head, well past the ridge,
@@ -51,9 +56,11 @@
 //
 // Both bodies loop only over key tiles that can hold an unmasked key: from
 // the window's left edge to min(length, last causal position), which is
-// the TPU kernel's skip of fully masked tiles. GQA maps query head h to kv
-// head h / (H / KV) in the address computation, as the TPU kernel's index
-// map does.
+// the TPU kernel's skip of fully masked tiles. The mask and that key range
+// are attn_common.cuh's REPRO_ATTN_VISIBLE / REPRO_ATTN_KEY_RANGE, which
+// the backward kernels use too. GQA maps query head h to kv head
+// h / (H / KV) in the address computation, as the TPU kernel's index map
+// does.
 
 #include "attn_common.cuh"
 
@@ -70,7 +77,7 @@ constexpr int smem_floats() {
   return BQ * (HD + 1) + 2 * BK * (HD + 1) + BQ * (BK + 1);
 }
 
-template <typename T, int HD, bool CAUSAL>
+template <typename T, int HD, bool CAUSAL, bool LSE>
 __global__ void __launch_bounds__(NT)
 flash_kernel(const T* __restrict__ q,         // (B, Sq, H, hd)
              const T* __restrict__ k,         // (B, Sk, KV, hd)
@@ -78,6 +85,7 @@ flash_kernel(const T* __restrict__ q,         // (B, Sq, H, hd)
              const int* __restrict__ lengths,   // (B,) or null
              const int* __restrict__ q_offset,  // (B,) or null
              T* __restrict__ out,             // (B, Sq, H, hd)
+             float* __restrict__ lse,         // (B, H, Sq) or null
              int Sq, int Sk, int H, int KV, int window, float sm_scale) {
   constexpr int LD = HD + 1;
   constexpr int LDP = BK + 1;
@@ -103,11 +111,9 @@ flash_kernel(const T* __restrict__ q,         // (B, Sq, H, hd)
     Qs[r * LD + d] = qi < Sq ? to_f32(q[(((size_t)b * Sq + qi) * H + h) * HD + d]) : 0.f;
   }
 
-  int kend = len;
-  if (CAUSAL) kend = min(kend, qoff + min(q0 + BQ, Sq));
-  int kstart = 0;
-  if (window >= 0) kstart = max(0, qoff + q0 - window + 1);
-  kstart = (kstart / BK) * BK;
+  int kstart, kend;
+  REPRO_ATTN_KEY_RANGE(CAUSAL, qoff + q0, qoff + min(q0 + BQ, Sq), len, window, BK, kstart,
+                       kend);
 
   float m[4], l[4], acc[4][DPT];
 #pragma unroll
@@ -155,7 +161,7 @@ flash_kernel(const T* __restrict__ q,         // (B, Sq, H, hd)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kp = k0 + tc + 16 * j;
-        ok[j] = kp < len && (!CAUSAL || kp <= qpos) && (window < 0 || kp > qpos - window);
+        ok[j] = REPRO_ATTN_VISIBLE(CAUSAL, kp, qpos, len, window);
         s[i][j] *= sm_scale;
         if (ok[j]) mx = fmaxf(mx, s[i][j]);
       }
@@ -201,12 +207,16 @@ flash_kernel(const T* __restrict__ q,         // (B, Sq, H, hd)
 #pragma unroll
     for (int j = 0; j < DPT; ++j)
       out[(((size_t)b * Sq + qi) * H + h) * HD + tc + 16 * j] = from_f32<T>(acc[i][j] * inv);
+    if constexpr (LSE)
+      if (tc == 0)  // m and l are the same on the row's 16 threads
+        lse[((size_t)b * H + h) * Sq + qi] = l[i] == 0.f ? -INFINITY : m[i] + logf(l[i]);
   }
 }
 
 // ---- bf16: tensor cores ------------------------------------------------
 
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // WARPS warps of 16 query rows each: a query tile of 16 * WARPS rows
 template <int HD, int WARPS>
@@ -214,7 +224,7 @@ constexpr int mma_smem_bytes() {
   return (16 * WARPS + 4 * BK) * (HD + 8) * 2;  // Q, two K stages, two V stages
 }
 
-template <int HD, bool CAUSAL, int WARPS>
+template <int HD, bool CAUSAL, int WARPS, bool LSE>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_mma_kernel(const __nv_bfloat16* __restrict__ q,  // (B, Sq, H, hd)
                  const __nv_bfloat16* __restrict__ k,  // (B, Sk, KV, hd)
@@ -222,6 +232,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,  // (B, Sq, H, hd)
                  const int* __restrict__ lengths,    // (B,) or null
                  const int* __restrict__ q_offset,   // (B,) or null
                  __nv_bfloat16* __restrict__ out,    // (B, Sq, H, hd)
+                 float* __restrict__ lse,            // (B, H, Sq) or null
                  int Sq, int Sk, int H, int KV, int window, float scale_log2) {
   static_assert(HD % 16 == 0, "hd must be a multiple of the mma depth");
   constexpr int BQ = 16 * WARPS;
@@ -248,11 +259,9 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,  // (B, Sq, H, hd)
   const int qoff = q_offset ? q_offset[b] : 0;
   const int len = lengths ? min(lengths[b], Sk) : Sk;
 
-  int kend = len;
-  if (CAUSAL) kend = min(kend, qoff + min(q0 + BQ, Sq));
-  int kstart = 0;
-  if (window >= 0) kstart = max(0, qoff + q0 - window + 1);
-  kstart = (kstart / BK) * BK;
+  int kstart, kend;
+  REPRO_ATTN_KEY_RANGE(CAUSAL, qoff + q0, qoff + min(q0 + BQ, Sq), len, window, BK, kstart,
+                       kend);
   const int ntiles = kend > kstart ? (kend - kstart + BK - 1) / BK : 0;
 
   const size_t qstride = (size_t)H * HD;
@@ -336,9 +345,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,  // (B, Sq, H, hd)
         if (!full) {
           const int kp = k0 + j * 8 + tc * 2 + (e & 1);
           const int qp = qpos0 + (e >> 1) * 8;
-          const bool ok =
-              kp < len && (!CAUSAL || kp <= qp) && (window < 0 || kp > qp - window);
-          x = ok ? x : NEG_INF;
+          x = REPRO_ATTN_VISIBLE(CAUSAL, kp, qp, len, window) ? x : NEG_INF;
         }
         s[j][e] = x;
       }
@@ -405,6 +412,11 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,  // (B, Sq, H, hd)
     const int qi = q0 + warp * 16 + gr + hi * 8;
     if (qi >= Sq) continue;
     const float inv = l[hi] == 0.f ? 0.f : 1.f / l[hi];
+    // m is in the log2 domain: the natural log-sum-exp is m ln 2 + log l
+    if constexpr (LSE)
+      if (tc == 0)
+        lse[((size_t)b * H + h) * Sq + qi] =
+            l[hi] == 0.f ? -INFINITY : m[hi] * LN2 + logf(l[hi]);
     __nv_bfloat16* orow = out + (((size_t)b * Sq + qi) * H + h) * HD + tc * 2;
 #pragma unroll
     for (int j = 0; j < NO; ++j)
@@ -417,10 +429,10 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,  // (B, Sq, H, hd)
 
 template <int HD, bool CAUSAL>
 int launch_f32(const void* q, const void* k, const void* v, const void* lengths,
-               const void* q_offset, void* out, int B, int Sq, int Sk, int H, int KV,
+               const void* q_offset, void* out, void* lse, int B, int Sq, int Sk, int H, int KV,
                int window, float sm_scale, cudaStream_t stream) {
   constexpr int bytes = smem_floats<HD>() * int(sizeof(float));
-  auto kern = flash_kernel<float, HD, CAUSAL>;
+  auto kern = lse ? flash_kernel<float, HD, CAUSAL, true> : flash_kernel<float, HD, CAUSAL, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
@@ -428,17 +440,18 @@ int launch_f32(const void* q, const void* k, const void* v, const void* lengths,
   kern<<<grid, NT, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int*>(lengths),
-      static_cast<const int*>(q_offset), static_cast<float*>(out), Sq, Sk, H, KV, window,
-      sm_scale);
+      static_cast<const int*>(q_offset), static_cast<float*>(out), static_cast<float*>(lse), Sq,
+      Sk, H, KV, window, sm_scale);
   return (int)cudaGetLastError();
 }
 
 template <int HD, bool CAUSAL, int WARPS>
 int launch_bf16(const void* q, const void* k, const void* v, const void* lengths,
-                const void* q_offset, void* out, int B, int Sq, int Sk, int H, int KV,
+                const void* q_offset, void* out, void* lse, int B, int Sq, int Sk, int H, int KV,
                 int window, float sm_scale, cudaStream_t stream) {
   constexpr int bytes = mma_smem_bytes<HD, WARPS>();
-  auto kern = flash_mma_kernel<HD, CAUSAL, WARPS>;
+  auto kern = lse ? flash_mma_kernel<HD, CAUSAL, WARPS, true>
+                  : flash_mma_kernel<HD, CAUSAL, WARPS, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
@@ -446,34 +459,34 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* lengths
   kern<<<grid, 32 * WARPS, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(lengths),
-      static_cast<const int*>(q_offset), static_cast<__nv_bfloat16*>(out), Sq, Sk, H, KV,
-      window, sm_scale * LOG2E);
+      static_cast<const int*>(q_offset), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), Sq, Sk, H, KV, window, sm_scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
 template <int HD, bool CAUSAL>
 int launch(int dtype, int warps, const void* q, const void* k, const void* v,
-           const void* lengths, const void* q_offset, void* out, int B, int Sq, int Sk,
+           const void* lengths, const void* q_offset, void* out, void* lse, int B, int Sq, int Sk,
            int H, int KV, int window, float sm_scale, cudaStream_t st) {
   if (dtype == DTYPE_F32)
-    return launch_f32<HD, CAUSAL>(q, k, v, lengths, q_offset, out, B, Sq, Sk, H, KV, window,
+    return launch_f32<HD, CAUSAL>(q, k, v, lengths, q_offset, out, lse, B, Sq, Sk, H, KV, window,
                                   sm_scale, st);
   if (dtype == DTYPE_BF16 && warps == 4)
-    return launch_bf16<HD, CAUSAL, 4>(q, k, v, lengths, q_offset, out, B, Sq, Sk, H, KV,
-                                      window, sm_scale, st);
+    return launch_bf16<HD, CAUSAL, 4>(q, k, v, lengths, q_offset, out, lse, B, Sq, Sk, H,
+                                      KV, window, sm_scale, st);
   if (dtype == DTYPE_BF16 && warps == 8)
-    return launch_bf16<HD, CAUSAL, 8>(q, k, v, lengths, q_offset, out, B, Sq, Sk, H, KV,
-                                      window, sm_scale, st);
+    return launch_bf16<HD, CAUSAL, 8>(q, k, v, lengths, q_offset, out, lse, B, Sq, Sk, H,
+                                      KV, window, sm_scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
 template <bool CAUSAL>
 int dispatch(int dtype, int warps, int hd, const void* q, const void* k, const void* v,
-             const void* lengths, const void* q_offset, void* out, int B, int Sq, int Sk,
+             const void* lengths, const void* q_offset, void* out, void* lse, int B, int Sq, int Sk,
              int H, int KV, int window, float sm_scale, cudaStream_t st) {
 #define REPRO_HD_CASE(HD)                                                                \
   case HD:                                                                              \
-    return launch<HD, CAUSAL>(dtype, warps, q, k, v, lengths, q_offset, out, B, Sq, Sk, H, \
+    return launch<HD, CAUSAL>(dtype, warps, q, k, v, lengths, q_offset, out, lse, B, Sq, Sk, H, \
                               KV, window, sm_scale, st);
   switch (hd) {
     REPRO_HD_CASE(32)
@@ -491,21 +504,23 @@ int dispatch(int dtype, int warps, int hd, const void* q, const void* k, const v
 extern "C" {
 
 // q (B, Sq, H, hd); k, v (B, Sk, KV, hd); lengths, q_offset (B,) int32 or
-// null; out (B, Sq, H, hd). window < 0 means no window. bf16 runs the
+// null; out (B, Sq, H, hd); lse (B, H, Sq) f32 or null (written when
+// given: each row's log-sum-exp, -inf where nothing is attended). window
+// < 0 means no window. bf16 runs the
 // tensor-core body with query tiles of 16 * warps rows (warps 4 or 8), f32
 // the CUDA-core one (warps unused); hd in {32, 64, 80, 128}.
 // Returns cudaGetLastError() after the launch (or the attribute call's
 // error); an empty output launches nothing.
 int flash_attention(int dtype, const void* q, const void* k, const void* v,
-                    const void* lengths, const void* q_offset, void* out, int B, int Sq,
-                    int Sk, int H, int KV, int hd, int causal, int window, float sm_scale,
-                    int warps, void* stream) {
+                    const void* lengths, const void* q_offset, void* out, void* lse, int B,
+                    int Sq, int Sk, int H, int KV, int hd, int causal, int window,
+                    float sm_scale, int warps, void* stream) {
   if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0 || H == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return causal ? dispatch<true>(dtype, warps, hd, q, k, v, lengths, q_offset, out, B, Sq, Sk,
-                                 H, KV, window, sm_scale, st)
-                : dispatch<false>(dtype, warps, hd, q, k, v, lengths, q_offset, out, B, Sq,
+  return causal ? dispatch<true>(dtype, warps, hd, q, k, v, lengths, q_offset, out, lse, B, Sq,
+                                 Sk, H, KV, window, sm_scale, st)
+                : dispatch<false>(dtype, warps, hd, q, k, v, lengths, q_offset, out, lse, B, Sq,
                                   Sk, H, KV, window, sm_scale, st);
 }
 

@@ -16,6 +16,14 @@ kernel leaves at zero after every launch. The scan wrapper plans its
 launch the same way with ``scan_plan``: states per thread and time steps
 staged per chunk, from the shapes alone. The kernels' sources and design
 notes are in ``csrc/``.
+
+``flash_attention(..., return_lse=True)`` also returns each row's
+log-sum-exp, from which ``flash_attention_bwd`` (two launches, dK/dV and
+dQ) computes the gradients; ``kernels/ops.py:FlashAttention`` ties the
+two together for autograd. No other wrapper has a backward, so every
+wrapper refuses, in grad mode, inputs that require grad (``_no_grad``):
+a launch would hand autograd an output with no history and the inputs'
+gradients would be lost without an error.
 """
 from __future__ import annotations
 
@@ -29,6 +37,8 @@ from repro_torch.kernels import build
 #: launches per kernel since the last `reset_launches()`
 launches = {
     "flash_attention": 0,
+    "flash_attention_bwd_dq": 0,
+    "flash_attention_bwd_dkdv": 0,
     "decode_attention": 0,
     "paged_decode_attention": 0,
     "selective_scan": 0,
@@ -50,8 +60,12 @@ _SIGS = {
                          _I, _I, _I, _I, _I, _F, _P],
     "paged_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    "flash_attention": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _I, _I, _F, _I, _P],
+    "flash_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _F, _I, _P],
+    "flash_attention_bwd_dkdv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                 _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "flash_attention_bwd_dq": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, _I, _I, _I, _F, _P],
     "selective_scan": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                        _I, _I, _L, _L, _L, _L, _P],
 }
@@ -59,6 +73,8 @@ _LIB_OF = {
     "decode_attention": "decode_attention",
     "paged_decode_attention": "decode_attention",
     "flash_attention": "flash_attention",
+    "flash_attention_bwd_dkdv": "flash_attention_bwd",
+    "flash_attention_bwd_dq": "flash_attention_bwd",
     "selective_scan": "selective_scan",
 }
 _fns = {}
@@ -90,6 +106,28 @@ def _check(name: str, *tensors, dtype=None) -> None:
             raise ValueError(f"{name}: tensors must be 16-byte aligned")
         if dtype is not None and t.dtype != dtype:
             raise ValueError(f"{name}: dtype {t.dtype} != {dtype}")
+
+
+#: why each wrapper without a backward refuses inputs that require grad
+_NO_BACKWARD = {
+    "flash_attention": "differentiate through kernels.ops.attention, whose "
+                       "FlashAttention runs the backward kernels",
+    "decode_attention": "decode never trains; call it under torch.no_grad()",
+    "paged_decode_attention": "decode never trains; call it under "
+                              "torch.no_grad()",
+    "selective_scan": "the selective-scan backward kernel is not ported yet; "
+                      "train ssm and hybrid models on the CPU",
+}
+
+
+def _no_grad(name: str, *tensors) -> None:
+    """Raise where a launch would drop gradients: grad mode is on and an
+    input requires grad, but the kernel's output has no autograd history."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward kernel here and would "
+                           f"drop the inputs' gradients: "
+                           f"{_NO_BACKWARD[name]}")
 
 
 def _ints(name: str, t: torch.Tensor, n: int) -> torch.Tensor:
@@ -221,6 +259,7 @@ def decode_attention(q, k, v, lengths, *, window=None, sm_scale=None):
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd:
         raise ValueError(f"{name}: shape mismatch {q.shape} {k.shape} "
                          f"{v.shape}")
+    _no_grad(name, q, k, v)
     lengths = _ints(name, lengths, b)
     _check(name, q, k, v, dtype=q.dtype)
     _check(name, lengths)
@@ -242,6 +281,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
         raise ValueError(f"{name}: shape mismatch {q.shape} {k_pool.shape}")
     if block_tables.ndim != 2 or block_tables.shape[0] != b:
         raise ValueError(f"{name}: block_tables must be (B, max_pages)")
+    _no_grad(name, q, k_pool, v_pool)
     bt = block_tables.to(torch.int32).contiguous()
     lengths = _ints(name, lengths, b)
     _check(name, q, k_pool, v_pool, dtype=q.dtype)
@@ -254,11 +294,9 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
         (b, p_total, page, max_pages, h, kv, hd), window, sm_scale)
 
 
-def flash_attention(q, k, v, *, causal=True, window=None, lengths=None,
-                    q_offset=None, sm_scale=None):
-    """q (B,Sq,H,hd), k/v (B,Sk,KV,hd) [, lengths (B,), q_offset (B,)]
-    -> (B,Sq,H,hd)."""
-    name = "flash_attention"
+def _flash_shapes(name, q, k, v, lengths):
+    """Checks shared by the forward and backward wrappers -> (b, sq, sk,
+    h, kv, hd, lengths as contiguous int32 or None)."""
     b, sq, h, hd = q.shape
     _, sk, kv, _ = k.shape
     if hd not in FLASH_HEAD_DIMS or kv == 0 or h % kv:
@@ -267,23 +305,73 @@ def flash_attention(q, k, v, *, causal=True, window=None, lengths=None,
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd:
         raise ValueError(f"{name}: shape mismatch {q.shape} {k.shape}")
     _check(name, q, k, v, dtype=q.dtype)
-    lens = offs = None
+    lens = None
     if lengths is not None:
         lens = _ints(name, lengths, b)
         _check(name, lens)
+    return b, sq, sk, h, kv, hd, lens
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, lengths=None,
+                    q_offset=None, sm_scale=None, return_lse=False):
+    """q (B,Sq,H,hd), k/v (B,Sk,KV,hd) [, lengths (B,), q_offset (B,)]
+    -> (B,Sq,H,hd), and with return_lse also lse (B,H,Sq) f32: each row's
+    log-sum-exp of its scaled scores, -inf where nothing is attended."""
+    name = "flash_attention"
+    _no_grad(name, q, k, v)
+    b, sq, sk, h, kv, hd, lens = _flash_shapes(name, q, k, v, lengths)
+    offs = None
     if q_offset is not None:
         offs = _ints(name, q_offset, b)
         _check(name, offs)
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     code = _dtype(name, q)
     _run(name, "tensor_core" if q.dtype == torch.bfloat16 else "cuda_core",
          code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
          lens.data_ptr() if lens is not None else None,
          offs.data_ptr() if offs is not None else None,
-         out.data_ptr(), b, sq, sk, h, kv, hd, int(bool(causal)),
+         out.data_ptr(), lse.data_ptr() if lse is not None else None,
+         b, sq, sk, h, kv, hd, int(bool(causal)),
          _window(window), _scale(sm_scale, hd), flash_plan(b, sq, h),
          _stream())
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True,
+                        window=None, lengths=None, q_offset=None,
+                        sm_scale=None):
+    """Gradients of ``flash_attention`` from its output `out` and `lse`
+    and the output's gradient `dout` (B,Sq,H,hd) -> (dq, dk, dv) in the
+    inputs' dtype. Two launches: dK/dV over key tiles (GQA summed in the
+    block), then dQ over query tiles. Training has no query offset, so
+    `q_offset` is refused."""
+    name = "flash_attention_bwd"
+    if q_offset is not None:
+        raise ValueError(f"{name}: q_offset has no use in training and the "
+                         "backward kernels do not take it")
+    b, sq, sk, h, kv, hd, lens = _flash_shapes(name, q, k, v, lengths)
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"{name}: out {tuple(out.shape)} and dout "
+                         f"{tuple(dout.shape)} must be q's shape "
+                         f"{tuple(q.shape)}")
+    if tuple(lse.shape) != (b, h, sq):
+        raise ValueError(f"{name}: lse {tuple(lse.shape)} must be "
+                         f"{(b, h, sq)}")
+    _check(name, out, dout, dtype=q.dtype)
+    _check(name, lse, dtype=torch.float32)
+    code = _dtype(name, q)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), dout.data_ptr(),
+            lens.data_ptr() if lens is not None else None)
+    dims = (b, sq, sk, h, kv, hd, int(bool(causal)), _window(window),
+            _scale(sm_scale, hd), _stream())
+    _run("flash_attention_bwd_dkdv", None, code, *ptrs, dk.data_ptr(),
+         dv.data_ptr(), *dims)
+    _run("flash_attention_bwd_dq", None, code, *ptrs, dq.data_ptr(), *dims)
+    return dq, dk, dv
 
 
 SCAN_STATES = (4, 8, 16, 32, 64)
@@ -375,6 +463,7 @@ def selective_scan(x, dt, A, B, C, D, *, return_state=False):
                          f"{tuple(dt.shape)} A {tuple(A.shape)} B "
                          f"{tuple(B.shape)} C {tuple(C.shape)} D "
                          f"{tuple(D.shape)}")
+    _no_grad(name, x, dt, A, B, C, D)
     _check(name, x, dt, dtype=x.dtype)
     if not all(t.is_cuda for t in (A, B, C, D)):
         raise ValueError(f"{name}: tensors must lie on a CUDA device")

@@ -10,6 +10,13 @@ scan kernel also returns the final state, so the serving prefill
 (``selective_scan_with_state``) runs on it and not only the full-sequence
 forward.
 
+Attention is the one kernel with a backward: in grad mode on CUDA it
+runs through ``FlashAttention`` (the hand-written backward kernels); on
+the CPU torch autograd differentiates ``attention_ref``, as the
+reference trains through XLA's autodiff of its ``attention_ref``. Every
+other CUDA kernel refuses, in grad mode, inputs that require grad
+(``kernels/cuda.py:_no_grad``) rather than drop their gradients.
+
 Mamba-2's recurrence (``ssd``) runs on the same scan kernel: it is the
 selective scan with each head's dt, A and D broadcast over the head's
 channels (``ssd_scan_args``). The reference's chunked SSD
@@ -21,14 +28,52 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from repro_torch.kernels import cuda as _cuda
 from repro_torch.kernels import ref as _ref
 
 
+class FlashAttention(torch.autograd.Function):
+    """The flash kernel with its hand-written backward: the forward also
+    writes each row's log-sum-exp and saves q, k, v, out and lse; the
+    backward launches ``flash_attention_bwd`` (dK/dV, then dQ). Under
+    ``torch.utils.checkpoint`` the recomputed forward launches the kernel
+    again and saves afresh."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, lengths, sm_scale):
+        out, lse = _cuda.flash_attention(
+            q, k, v, causal=causal, window=window, lengths=lengths,
+            sm_scale=sm_scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(causal=causal, window=window, lengths=lengths,
+                        sm_scale=sm_scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _cuda.flash_attention_bwd(
+            q, k, v, out, lse, dout.contiguous(), **ctx.opts)
+        return dq, dk, dv, None, None, None, None
+
+
 def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
               lengths=None, q_offset=None, sm_scale: Optional[float] = None):
-    """Prefill/train attention. q (B,Sq,H,hd), k/v (B,Sk,KV,hd)."""
+    """Prefill/train attention. q (B,Sq,H,hd), k/v (B,Sk,KV,hd). On CUDA
+    in grad mode with an input that requires grad it runs through
+    ``FlashAttention`` (forward and backward kernels); otherwise the
+    forward kernel alone, as serving does."""
     if q.is_cuda:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            if q_offset is not None:
+                raise ValueError("attention: q_offset has no use in "
+                                 "training and the backward kernels do not "
+                                 "take it")
+            return FlashAttention.apply(q, k, v, causal, window, lengths,
+                                        sm_scale)
         return _cuda.flash_attention(
             q, k, v, causal=causal, window=window, lengths=lengths,
             q_offset=q_offset, sm_scale=sm_scale)

@@ -3,7 +3,11 @@ selective scan and Mamba-2's state-space-dual recurrence).
 
 The semantic ground truth, line for line with ``src/repro/kernels/ref.py``:
 the CPU path of every dispatch in ``kernels/ops.py`` and the yardstick the
-CUDA kernels are held against on the card. Fully masked rows follow this
+CUDA kernels are held against on the card. ``attention_lse_ref`` and
+``attention_bwd_ref`` are the plain versions of the flash kernel's `lse`
+output and of the backward kernels; the CPU path differentiates
+``attention_ref`` with torch autograd instead, as the reference does with
+XLA's. Fully masked rows follow this
 reference (uniform average over the masked keys); the CUDA kernels write
 zeros there, as the Pallas kernels do — the serving path never produces
 such a row outside of padding that is dropped.
@@ -63,6 +67,65 @@ def attention_ref(
     logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _mask(b, sq, sk, dev, *, causal, window, lengths):
+    """(B, 1, Sq, Sk) visibility of key j from query i (positions are the
+    indices): attention_ref's mask without a query offset."""
+    kv_pos = torch.arange(sk, device=dev)[None, None, None, :]
+    q_pos = torch.arange(sq, device=dev)[None, None, :, None]
+    mask = torch.ones((b, 1, sq, sk), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= kv_pos <= q_pos
+    if lengths is not None:
+        mask &= kv_pos < lengths.to(dev)[:, None, None, None]
+    if window is not None:
+        mask &= kv_pos > q_pos - window
+    return mask
+
+
+def attention_lse_ref(q, k, v, *, causal=True, window=None, lengths=None,
+                      sm_scale=None) -> torch.Tensor:
+    """Each row's log-sum-exp of its scaled, masked scores -> (B, H, Sq)
+    f32, -inf for a row with nothing to attend: the plain version of the
+    flash kernel's `lse` output."""
+    b, sq, h, hd = q.shape
+    scale = sm_scale if sm_scale is not None else hd ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                     _repeat_kv(k, h).float()) * scale
+    mask = _mask(b, sq, k.shape[1], q.device, causal=causal, window=window,
+                 lengths=lengths)
+    return torch.logsumexp(s.masked_fill(~mask, float("-inf")), dim=-1)
+
+
+def attention_bwd_ref(q, k, v, out, lse, dout, *, causal=True, window=None,
+                      lengths=None, sm_scale=None):
+    """Gradients of attention from its output and `lse`, the explicit
+    formulas in f32: P = exp(scale Q K^T - lse) (0 where masked and on rows
+    with lse = -inf), dP = dO V^T, Delta = rowsum(dO o O), dS = P o (dP -
+    Delta); dV = P^T dO and dK = scale dS^T Q summed over each KV head's
+    query heads, dQ = scale dS K. Returns (dq, dk, dv) in the inputs'
+    dtype: the plain version of the backward kernels
+    (csrc/flash_attention_bwd.cu)."""
+    b, sq, h, hd = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = sm_scale if sm_scale is not None else hd ** -0.5
+    qf, of, dof = q.float(), out.float(), dout.float()
+    kf, vf = _repeat_kv(k, h).float(), _repeat_kv(v, h).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    mask = _mask(b, sq, sk, q.device, causal=causal, window=window,
+                 lengths=lengths) & torch.isfinite(lse)[..., None]
+    p = torch.where(mask, torch.exp(s - lse[..., None]), torch.zeros_like(s))
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    delta = torch.einsum("bqhd,bqhd->bhq", dof, of)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dk = dk.reshape(b, sk, kvh, g, hd).sum(3)
+    dv = dv.reshape(b, sk, kvh, g, hd).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention_ref(

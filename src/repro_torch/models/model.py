@@ -1,7 +1,9 @@
-"""Unified model API for serving: init / prefill / decode.
+"""Unified model API: init / train / prefill / decode.
 
   model = Model(cfg, device="cuda")
   params = model.init(torch.Generator("cuda").manual_seed(0), torch.bfloat16)
+  logits, aux = model.forward_train(params, batch)
+  loss = model.loss(params, batch)       # differentiable (torch autograd)
   cache = model.init_cache(batch=B, max_seq=S)
   logits, cache = model.prefill(params, {"tokens": t, "lengths": n}, cache)
   logits, cache = model.decode_step(params, tokens, cache)
@@ -39,10 +41,13 @@ def _argmax_ids(logits: torch.Tensor) -> torch.Tensor:
 
 class Model:
     def __init__(self, cfg: ModelConfig, *, window: Optional[int] = None,
-                 moe_seq_chunk: int = 0, device="cuda"):
+                 moe_seq_chunk: int = 0, remat: bool = False,
+                 device="cuda"):
         tfm.check_kind(cfg)
         self.cfg = cfg
         self.window = window
+        # per-layer rematerialisation under autograd (transformer.remat_call)
+        self.remat = remat
         # sequence-chunked MoE dispatch (moe.moe_apply_chunked); 0 = one
         # capacity over the whole call, the reference's default
         self.moe_seq_chunk = moe_seq_chunk
@@ -52,6 +57,47 @@ class Model:
     def init(self, generator: torch.Generator, dtype=torch.float32):
         from repro_torch.bridge import init_params
         return init_params(self.cfg, generator, self.device, dtype)
+
+    # ----------------------------------------------------------------- train
+    def forward_train(self, params, batch):
+        """batch {"tokens" (B, S)} plus "patch_embeds" (vlm) or "frames"
+        (encoder-decoder) -> (logits (B, S, V), aux)."""
+        return tfm.forward(params, self.cfg, batch, window=self.window,
+                           remat=self.remat,
+                           moe_seq_chunk=self.moe_seq_chunk)
+
+    def loss(self, params, batch, *, ce_chunk: int = 1024):
+        """Next-token cross-entropy (labels < 0 masked) + the MoE aux loss,
+        as ``src/repro/models/model.py:Model.loss``: the CE runs over
+        sequence chunks (`ce_chunk`, halved until it divides S), each
+        checkpointed under remat, so the (tokens, vocab) logits never
+        exist beyond one chunk. Returns tot / max(cnt, 1) + aux, a f32
+        scalar."""
+        h, aux = tfm.forward(params, self.cfg, batch, window=self.window,
+                             remat=self.remat, return_hidden=True,
+                             moe_seq_chunk=self.moe_seq_chunk)
+        labels = batch["labels"]
+        s = h.shape[1]
+        chunk = min(ce_chunk, s)
+        while s % chunk:
+            chunk //= 2
+
+        def ce(hc, lc):
+            logits = unembed(params, hc).float()
+            mask = lc >= 0
+            lab = torch.clamp(lc, min=0).long()
+            nll = -torch.log_softmax(logits, dim=-1).gather(
+                -1, lab[..., None])[..., 0]
+            return (torch.where(mask, nll, torch.zeros_like(nll)).sum(),
+                    mask.sum().float())
+
+        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+        for c0 in range(0, s, chunk):
+            t, n = tfm.remat_call(ce, self.remat, h[:, c0:c0 + chunk],
+                              labels[:, c0:c0 + chunk])
+            tot, cnt = tot + t, cnt + n
+        return tot / torch.clamp(cnt, min=1.0) + aux
 
     # ----------------------------------------------------------------- serve
     def enc_seq(self, max_seq: int) -> int:

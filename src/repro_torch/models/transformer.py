@@ -21,6 +21,18 @@ its cross planes are written in the cache's dtype. In f32 the two
 agree, which is where the CPU differential tests hold them. Patch
 embeddings are cast to ``vision_proj``'s dtype the same way.
 
+Training (``forward(..., remat=True)`` under autograd) checkpoints each
+layer — each round for hybrid — with ``torch.utils.checkpoint``
+(non-reentrant): only the residual stream between layers is kept and
+everything inside a layer is recomputed on the backward pass, the
+counterpart of the reference's ``jax.checkpoint(nothing_saveable)``
+(``src/repro/models/transformer.py:137``). ``forward`` and ``encode``
+first split the stacked weights into per-layer views with
+``torch.unbind`` (``unstack_layers``): under autograd a slice taken by
+indexing back-propagates a zero tensor the size of the whole stack for
+every layer, while unbind's backward stacks the layers' gradients once.
+The decode paths index the stacks directly.
+
 ``verify_step`` and ``propose_step`` (speculative decoding) are loops
 over ``decode_step`` with no host sync inside, as the reference's scans
 are, so a verify window is bitwise the same decode steps taken one by
@@ -40,10 +52,41 @@ from repro_torch.models.layers import embed_apply, mlp_apply, rms_norm, unembed
 
 
 def layer_params(tree, i: int):
-    """Layer `i` of a stacked parameter tree (views, no copies)."""
+    """Layer `i` of a stacked parameter tree (views, no copies), or of
+    one that ``unstack_layers`` split into per-layer lists."""
     if isinstance(tree, dict):
         return {k: layer_params(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+#: the stacked subtrees and how many leading layer axes they have
+STACKED = {"blocks": 1, "enc_blocks": 1, "dec_blocks": 1, "rounds": 2}
+
+
+def unstack_layers(params):
+    """The stacked subtrees with each leaf split into (nested) per-layer
+    lists of views by ``torch.unbind``; ``layer_params`` indexes either.
+    A tree already split is returned as it is."""
+    def split(t, depth):
+        if isinstance(t, dict):
+            return {k: split(v, depth) for k, v in t.items()}
+        if not isinstance(t, torch.Tensor):
+            return t
+        parts = torch.unbind(t)
+        return list(parts) if depth == 1 else [split(x, depth - 1)
+                                               for x in parts]
+    return {k: split(v, STACKED[k]) if k in STACKED else v
+            for k, v in params.items()}
+
+
+def remat_call(fn, remat: bool, *args):
+    """One layer (or hybrid round); with `remat` under autograd through
+    non-reentrant ``torch.utils.checkpoint``, so only its inputs are kept
+    and it is recomputed on the backward pass."""
+    if remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
 
 
 PORTED_KINDS = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec", "audio")
@@ -60,7 +103,7 @@ def check_kind(cfg: ModelConfig) -> None:
 def forward(params, cfg: ModelConfig, batch, *,
             window: Optional[int] = None, collect_cache: bool = False,
             lengths=None, return_hidden: bool = False,
-            moe_seq_chunk: int = 0):
+            moe_seq_chunk: int = 0, remat: bool = False):
     """Full-sequence causal forward.
 
     batch: {"tokens": (B, S)} plus "patch_embeds" (B, P, d) for a vlm
@@ -77,20 +120,24 @@ def forward(params, cfg: ModelConfig, batch, *,
     final-normed hidden states replace the logits. A moe model's aux is
     the sum of its layers' load-balance losses; with `lengths` padding
     positions are routed to no expert, and `moe_seq_chunk` routes over
-    sequence chunks (``moe.moe_apply_chunked``)."""
+    sequence chunks (``moe.moe_apply_chunked``). With `remat` under
+    autograd each layer (hybrid: each round) is checkpointed."""
     check_kind(cfg)
+    params = unstack_layers(params)
     encdec = cfg.kind in ENCDEC_KINDS
     h = None if encdec else _embed_inputs(params, cfg, batch)
     if encdec:
-        h, parts = _forward_encdec(params, cfg, batch, lengths)
+        h, parts = _forward_encdec(params, cfg, batch, lengths,
+                                   collect_cache, remat)
     elif cfg.kind == "ssm":
-        h, parts = _forward_ssm(params, cfg, h, collect_cache, lengths)
+        h, parts = _forward_ssm(params, cfg, h, collect_cache, lengths,
+                                remat)
     elif cfg.kind == "hybrid":
         h, parts = _forward_hybrid(params, cfg, h, window, collect_cache,
-                                   lengths)
+                                   lengths, remat)
     else:
         h, parts, aux = _forward_dense(params, cfg, h, window, lengths,
-                                       moe_seq_chunk)
+                                       moe_seq_chunk, collect_cache, remat)
     h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
     if cfg.kind == "vlm" and "patch_embeds" in batch:
         h = h[:, batch["patch_embeds"].shape[1]:]   # the text positions
@@ -112,27 +159,31 @@ def _embed_inputs(params, cfg, batch):
     return h
 
 
-def encode(params, cfg: ModelConfig, enc_inputs, enc_lengths=None):
+def encode(params, cfg: ModelConfig, enc_inputs, enc_lengths=None, *,
+           remat: bool = False):
     """The encoder stack over frame embeddings (B, Se, d), bidirectional,
     keys at or past `enc_lengths` masked -> (B, Se, d). The frames are
     cast to the embedding's dtype (module docstring)."""
-    h = enc_inputs.to(params["embed"]["table"].dtype)
-    for i in range(cfg.num_encoder_layers):
-        bp = layer_params(params["enc_blocks"], i)
+    def layer(h, bp):
         x = rms_norm(h, bp["attn_norm_scale"], cfg.norm_eps)
         a = attn.attn_train(bp["attn"], x, cfg, causal=False,
                             lengths=enc_lengths)
-        h = _add_mlp(bp, cfg, h, a)
+        return _add_mlp(bp, cfg, h, a)
+
+    params = unstack_layers(params)
+    h = enc_inputs.to(params["embed"]["table"].dtype)
+    for i in range(cfg.num_encoder_layers):
+        h = remat_call(layer, remat, h, layer_params(params["enc_blocks"], i))
     return rms_norm(h, params["enc_norm"]["scale"], cfg.norm_eps)
 
 
-def _forward_encdec(params, cfg, batch, lengths):
+def _forward_encdec(params, cfg, batch, lengths, collect_cache=True,
+                    remat=False):
     enc_lengths = batch.get("enc_lengths")
-    enc_out = encode(params, cfg, batch["frames"], enc_lengths)
+    enc_out = encode(params, cfg, batch["frames"], enc_lengths, remat=remat)
     h = embed_apply(params["embed"], batch["tokens"])
-    parts = {"k": [], "v": [], "cross_k": [], "cross_v": []}
-    for i in range(cfg.num_layers):
-        bp = layer_params(params["dec_blocks"], i)
+
+    def layer(h, bp):
         x = rms_norm(h, bp["self_norm_scale"], cfg.norm_eps)
         a, k, v = attn.attn_prefill(bp["self_attn"], x, cfg, lengths=lengths)
         h = h + a
@@ -140,29 +191,39 @@ def _forward_encdec(params, cfg, batch, lengths):
         ck, cv = attn.cross_attn_kv(bp["cross_attn"], enc_out, cfg)
         h = _add_mlp(bp, cfg, h, attn.cross_attn_apply(
             bp["cross_attn"], x, ck, cv, enc_lengths, cfg))
-        for key, t in zip(parts, (k, v, ck, cv)):
-            parts[key].append(t)
+        return h, (k, v, ck, cv)
+
+    parts = {"k": [], "v": [], "cross_k": [], "cross_v": []}
+    for i in range(cfg.num_layers):
+        h, planes = remat_call(layer, remat, h,
+                           layer_params(params["dec_blocks"], i))
+        if collect_cache:
+            for key, t in zip(parts, planes):
+                parts[key].append(t)
     return h, parts
 
 
-def _forward_ssm(params, cfg, h, collect_cache, lengths):
-    hs, convs = [], []
-    for i in range(cfg.num_layers):
-        bp = layer_params(params["blocks"], i)
+def _forward_ssm(params, cfg, h, collect_cache, lengths, remat=False):
+    def layer(h, bp):
         x = rms_norm(h, bp["norm_scale"], cfg.norm_eps)
         if collect_cache:
             y, st = ssm_lib.mamba1_prefill(bp["mamba"], x, cfg, lengths)
+            return h + y, st
+        return h + ssm_lib.mamba1_apply(bp["mamba"], x, cfg), None
+
+    hs, convs = [], []
+    for i in range(cfg.num_layers):
+        h, st = remat_call(layer, remat, h, layer_params(params["blocks"], i))
+        if collect_cache:
             hs.append(st["h"])
             convs.append(st["conv"])
-        else:
-            y = ssm_lib.mamba1_apply(bp["mamba"], x, cfg)
-        h = h + y
     return h, {"ssm_h": hs, "ssm_conv": convs}
 
 
 def _rounds(params):
-    """(rounds, per_round) of a hybrid tree."""
-    return tuple(params["rounds"]["norm_scale"].shape[:2])
+    """(rounds, per_round) of a hybrid tree, stacked or unstacked."""
+    scales = params["rounds"]["norm_scale"]
+    return len(scales), len(scales[0])
 
 
 def _add_mlp(bp, cfg, h, a):
@@ -172,12 +233,13 @@ def _add_mlp(bp, cfg, h, a):
     return h + mlp_apply(bp["mlp"], x)
 
 
-def _forward_hybrid(params, cfg, h, window, collect_cache, lengths):
+def _forward_hybrid(params, cfg, h, window, collect_cache, lengths,
+                    remat=False):
     shared = params["shared"]
     rounds, per = _rounds(params)
-    ks, vs, hs, convs = [], [], [], []
-    for r in range(rounds):
-        rp = layer_params(params["rounds"], r)
+
+    def round_fn(h, rp):
+        hs, convs = [], []
         for j in range(per):
             lp = layer_params(rp, j)
             x = rms_norm(h, lp["norm_scale"], cfg.norm_eps)
@@ -191,9 +253,17 @@ def _forward_hybrid(params, cfg, h, window, collect_cache, lengths):
         x = rms_norm(h, shared["attn_norm_scale"], cfg.norm_eps)
         a, k, v = attn.attn_prefill(shared["attn"], x, cfg, window=window,
                                     lengths=lengths)
-        ks.append(k)
-        vs.append(v)
-        h = _add_mlp(shared, cfg, h, a)
+        return _add_mlp(shared, cfg, h, a), (k, v, hs, convs)
+
+    ks, vs, hs, convs = [], [], [], []
+    for r in range(rounds):
+        h, (k, v, rh, rc) = remat_call(round_fn, remat, h,
+                                   layer_params(params["rounds"], r))
+        if collect_cache:
+            ks.append(k)
+            vs.append(v)
+            hs += rh
+            convs += rc
     return h, {"k": ks, "v": vs, "ssm_h": hs, "ssm_conv": convs}
 
 
@@ -210,24 +280,32 @@ def _moe_mlp(bp, cfg, h, a, valid, seq_chunk):
     return h + y, aux
 
 
-def _forward_dense(params, cfg, h, window, lengths, moe_seq_chunk):
-    ks, vs, auxs = [], [], []
+def _forward_dense(params, cfg, h, window, lengths, moe_seq_chunk,
+                   collect_cache=True, remat=False):
     valid = None
     if lengths is not None:
         valid = (torch.arange(h.shape[1], device=h.device)[None]
                  < lengths[:, None])
-    for i in range(cfg.num_layers):
-        bp = layer_params(params["blocks"], i)
+
+    def layer(h, bp):
         x = rms_norm(h, bp["attn_norm_scale"], cfg.norm_eps)
         a, k, v = attn.attn_prefill(bp["attn"], x, cfg, window=window,
                                     lengths=lengths)
-        ks.append(k)
-        vs.append(v)
         if cfg.kind == "moe":
             h, aux = _moe_mlp(bp, cfg, h, a, valid, moe_seq_chunk)
-            auxs.append(aux)
         else:
-            h = _add_mlp(bp, cfg, h, a)
+            h, aux = _add_mlp(bp, cfg, h, a), None
+        return h, k, v, aux
+
+    ks, vs, auxs = [], [], []
+    for i in range(cfg.num_layers):
+        h, k, v, aux = remat_call(layer, remat, h,
+                              layer_params(params["blocks"], i))
+        if collect_cache:
+            ks.append(k)
+            vs.append(v)
+        if aux is not None:
+            auxs.append(aux)
     aux = torch.stack(auxs).sum() if auxs else None
     return h, {"k": ks, "v": vs}, aux
 

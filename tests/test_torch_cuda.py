@@ -21,6 +21,13 @@ with Sq != Sk and with Sq = 1 (an encoder-decoder's cross-attention at
 prefill and at decode). Mamba-2 runs on
 the scan kernel through ``ops.ssd_scan_args`` and is held against the plain
 Mamba-2 recurrence at the scan's tolerances, N 64 and D 5120 included.
+The flash kernel's `lse` output is held against ``attention_lse_ref``
+and the backward kernels against ``attention_bwd_ref`` (f32 1e-4, bf16
+2e-2, relative to the largest |gradient|: the gradients sum over a whole
+row or column, so their scale is not the inputs'), the autograd Function
+through ``torch.utils.checkpoint`` against torch autograd of the plain
+attention on the CPU, and every kernel without a backward must raise in
+grad mode rather than drop gradients.
 """
 import numpy as np
 import pytest
@@ -803,3 +810,137 @@ def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+# ---- the backward: lse, the two backward kernels, autograd --------------
+
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+BWD_CASES = [
+    # (b, sq, sk, h, kv, hd, causal, lengths, window)
+    (2, 128, 128, 8, 2, 64, True, None, None),
+    (2, 200, 200, 4, 4, 128, True, [200, 77], None),
+    (1, 96, 96, 4, 1, 80, True, None, None),
+    (2, 100, 70, 4, 4, 64, False, [70, 33], None),
+    (2, 150, 150, 8, 1, 32, True, None, 40),
+    # an empty row (length 0) and rows the window leaves nothing: -inf lse,
+    # zero gradients
+    (3, 64, 64, 4, 2, 64, True, [64, 0, 10], 8),
+    (2, 512, 256, 16, 16, 64, False, [256, 131], None),
+    (1, 130, 130, 32, 8, 128, True, None, 33),
+]
+
+
+def _bwd_inputs(case, dtype, dev, seed=30):
+    b, sq, sk, h, kv, hd, causal, lens, window = case
+    q = _rand(seed, (b, sq, h, hd), dtype, dev)
+    k = _rand(seed + 1, (b, sk, kv, hd), dtype, dev)
+    v = _rand(seed + 2, (b, sk, kv, hd), dtype, dev)
+    dout = _rand(seed + 3, (b, sq, h, hd), dtype, dev)
+    lengths = (torch.tensor(lens, dtype=torch.int32, device=dev)
+               if lens is not None else None)
+    return q, k, v, dout, dict(causal=causal, window=window, lengths=lengths)
+
+
+def _rel_close(out, expect, dtype):
+    scale = max(expect.float().abs().max().item(), 1e-6)
+    err = (out.float() - expect.float()).abs().max().item()
+    assert err <= BWD_TOL[dtype] * scale, (err, scale)
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_lse_and_backward_kernels(dev, case, dtype):
+    q, k, v, dout, kw = _bwd_inputs(case, dtype, dev)
+    out, lse = tcuda.flash_attention(q, k, v, return_lse=True, **kw)
+    assert torch.equal(out, tcuda.flash_attention(q, k, v, **kw))
+    expect_lse = tref.attention_lse_ref(q, k, v, **kw)
+    empty = torch.isinf(expect_lse)
+    assert torch.equal(torch.isinf(lse), empty)
+    assert (lse[empty] < 0).all()
+    torch.testing.assert_close(lse[~empty], expect_lse[~empty],
+                               atol=BWD_TOL[dtype], rtol=BWD_TOL[dtype])
+    n = dict(tcuda.launches)
+    grads = tcuda.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    for key in ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv"):
+        assert tcuda.launches[key] == n[key] + 1
+    expect = tref.attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    for g, e, t in zip(grads, expect, (q, k, v)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        assert torch.isfinite(g).all()
+        _rel_close(g, e, dtype)
+    # rows that attend nothing get no gradient
+    rows = empty.transpose(1, 2)                        # (B, Sq, H)
+    assert not grads[0][rows].any()
+
+
+def test_flash_backward_refuses_q_offset(dev):
+    q, k, v, dout, kw = _bwd_inputs(BWD_CASES[0], torch.float32, dev)
+    out, lse = tcuda.flash_attention(q, k, v, return_lse=True, **kw)
+    with pytest.raises(ValueError, match="q_offset"):
+        tcuda.flash_attention_bwd(q, k, v, out, lse, dout, q_offset=torch.zeros(
+            2, dtype=torch.int32, device=dev), **kw)
+
+
+def test_flash_autograd_under_checkpoint(dev):
+    """Attention between two projections, under non-reentrant
+    torch.utils.checkpoint, through ops.attention on the card (the
+    Function) against torch autograd of the plain version on the CPU."""
+    from repro_torch.kernels import ops
+    b, s, h, kv, hd, d = 2, 96, 8, 2, 64, 128
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((b, s, d), generator=g)
+    wq = torch.randn((d, h * hd), generator=g) * d ** -0.5
+    wkv = torch.randn((d, 2 * kv * hd), generator=g) * d ** -0.5
+    lengths = torch.tensor([96, 50], dtype=torch.int32)
+
+    def run(device):
+        xs, wqs, wkvs = (t.to(device).requires_grad_() for t in (x, wq, wkv))
+        lens = lengths.to(device)
+
+        def block(xx):
+            q = (xx @ wqs).view(b, s, h, hd)
+            k, v = (xx @ wkvs).view(b, s, 2, kv, hd).unbind(2)
+            o = ops.attention(q, k.contiguous(), v.contiguous(),
+                              lengths=lens, window=48)
+            return (o.float() ** 2).sum()
+
+        loss = torch.utils.checkpoint.checkpoint(block, xs,
+                                                 use_reentrant=False)
+        return torch.autograd.grad(loss, (xs, wqs, wkvs))
+
+    tcuda.reset_launches()
+    got = run(dev)
+    assert tcuda.launches["flash_attention"] == 2       # forward + recompute
+    assert tcuda.launches["flash_attention_bwd_dq"] == 1
+    assert tcuda.launches["flash_attention_bwd_dkdv"] == 1
+    for a, e in zip(got, run("cpu")):
+        _rel_close(a.cpu(), e, torch.float32)
+
+
+def test_kernels_without_backward_refuse_grad_mode(dev):
+    from repro_torch.kernels import ops
+    q = _rand(40, (2, 4, 64), torch.float32, dev).requires_grad_()
+    k = _rand(41, (2, 32, 2, 64), torch.float32, dev)
+    lengths = torch.tensor([32, 7], dtype=torch.int32, device=dev)
+    tcuda.reset_launches()
+    with pytest.raises(RuntimeError, match="decode_attention has no backward"):
+        ops.decode_attention(q, k, k, lengths)
+    with pytest.raises(RuntimeError,
+                       match="paged_decode_attention has no backward"):
+        ops.paged_decode_attention(q, k.view(16, 4, 2, 64),
+                                   k.view(16, 4, 2, 64),
+                                   torch.arange(16, dtype=torch.int32,
+                                                device=dev).view(2, 8),
+                                   lengths)
+    x, dt, A, B, C, D = _scan_args(1, 32, 64, 16, torch.float32, dev)
+    x.requires_grad_()
+    with pytest.raises(RuntimeError, match="selective-scan backward"):
+        ops.selective_scan(x, dt, A, B, C, D)
+    with pytest.raises(RuntimeError, match="ops.attention"):
+        tcuda.flash_attention(_rand(42, (1, 8, 4, 64), torch.float32,
+                                    dev).requires_grad_(),
+                              k[:1, :8].contiguous(), k[:1, :8].contiguous())
+    assert all(n == 0 for n in tcuda.launches.values())
+    with torch.no_grad():                        # serving: no grad mode
+        ops.decode_attention(q, k, k, lengths)
+        ops.selective_scan(x, dt, A, B, C, D)

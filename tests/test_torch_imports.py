@@ -7,7 +7,7 @@ in them — at top level or inside a function — fails. The GPU machine has
 no JAX, so an import there would break the port's entry points. A fresh
 interpreter then imports the port's server and entry modules and must
 leave ``jax`` and ``repro`` out of ``sys.modules``; so must the cluster
-layer and the workload generators.
+layer, the workload generators, training and its launcher.
 """
 import ast
 import os
@@ -59,7 +59,12 @@ def test_port_sources_found():
                  "src/repro_torch/models/moe.py",
                  "src/repro_torch/serving/modality.py",
                  "src/repro_torch/serving/frontend.py",
-                 "src/repro_torch/workload/sharegpt.py", "chip_smoke.py"):
+                 "src/repro_torch/workload/sharegpt.py",
+                 "src/repro_torch/training/train.py",
+                 "src/repro_torch/training/optimizer.py",
+                 "src/repro_torch/training/checkpoint.py",
+                 "src/repro_torch/training/data.py",
+                 "src/repro_torch/launch/train.py", "chip_smoke.py"):
         assert want in names, want
 
 
@@ -92,6 +97,7 @@ def test_server_import_leaves_jax_out():
             "import repro_torch.serving.request\n"
             "import repro_torch.serving.modality\n"
             "import repro_torch.serving.frontend\n"
+            "import repro_torch.training, repro_torch.launch.train\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\n"

@@ -3,7 +3,12 @@
 The same numpy inputs go through the reference's Pallas kernels (in
 interpret mode) or its jnp oracle and through the port's plain PyTorch
 versions (``repro_torch.kernels.ref``), in f32 at the reference's kernel
-tolerance (2e-5, ``tests/test_kernels.py``). Also pinned: the paged plain
+tolerance (2e-5, ``tests/test_kernels.py``). The plain backward
+(``attention_bwd_ref``, from the output and ``attention_lse_ref``) is held
+against torch autograd of ``attention_ref`` and against ``jax.vjp`` of
+the reference's ``attention_ref``: the reference trains through XLA's
+autodiff of that function, and the backward kernels are held against
+this plain version on the card. Also pinned: the paged plain
 version is bitwise the contiguous one, and the dispatch sends CPU tensors
 to the plain versions (the CUDA wrappers refuse them). The CUDA kernels
 themselves are held against these plain versions in
@@ -140,6 +145,60 @@ def test_attention_plain_lengths_qoffset_match_reference(causal):
         _close(out, expect)
 
 
+BWD_CASES = [
+    # (b, sq, sk, h, kv, causal, window, lengths): GQA G = 1, 4, 8
+    pytest.param(2, 24, 24, 4, 4, True, None, None, id="causal-G1"),
+    pytest.param(2, 24, 24, 8, 2, True, 7, None, id="window-G4"),
+    pytest.param(2, 24, 24, 8, 1, True, None, [24, 9], id="ragged-G8"),
+    pytest.param(2, 20, 13, 4, 1, False, None, [13, 5], id="bidir-sq>sk-G4"),
+    pytest.param(2, 9, 30, 8, 8, False, None, [30, 17], id="bidir-sq<sk-G1"),
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,causal,window,lens", BWD_CASES)
+def test_attention_bwd_plain_matches_autograd_and_jax(b, sq, sk, h, kv,
+                                                      causal, window, lens):
+    import jax
+    hd = 32
+    q, k, v = _rand(20, (b, sq, h, hd)), _rand(21, (b, sk, kv, hd)), \
+        _rand(22, (b, sk, kv, hd))
+    dout = _rand(23, (b, sq, h, hd))
+    lengths = None if lens is None else np.array(lens, np.int32)
+    kw = dict(causal=causal, window=window)
+    tkw = dict(kw, lengths=None if lengths is None else _t(lengths))
+    jkw = dict(kw, lengths=None if lengths is None else jnp.asarray(lengths))
+    out = tref.attention_ref(_t(q), _t(k), _t(v), **tkw)
+    lse = tref.attention_lse_ref(_t(q), _t(k), _t(v), **tkw)
+    assert torch.isfinite(lse).all()
+    got = tref.attention_bwd_ref(_t(q), _t(k), _t(v), out, lse, _t(dout),
+                                 **tkw)
+    leaves = [_t(x).requires_grad_() for x in (q, k, v)]
+    auto = torch.autograd.grad(tref.attention_ref(*leaves, **tkw), leaves,
+                               _t(dout))
+    _, vjp = jax.vjp(lambda a, b_, c: jref.attention_ref(a, b_, c, **jkw),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for g, a, j in zip(got, auto, vjp(jnp.asarray(dout))):
+        assert g.shape == a.shape
+        _close(g, a.detach())
+        _close(g, j)
+
+
+def test_attention_bwd_plain_empty_row_has_no_gradient():
+    """A row with nothing to attend (length 0) has lse = -inf and, as in
+    the kernels, zero gradients, where attention_ref would average."""
+    q, k, v = _rand(24, (2, 8, 4, 32)), _rand(25, (2, 8, 2, 32)), \
+        _rand(26, (2, 8, 2, 32))
+    lengths = _t(np.array([8, 0], np.int32))
+    lse = tref.attention_lse_ref(_t(q), _t(k), _t(v), lengths=lengths)
+    assert torch.isinf(lse[1]).all() and torch.isfinite(lse[0]).all()
+    out = tref.attention_ref(_t(q), _t(k), _t(v), lengths=lengths)
+    dq, dk, dv = tref.attention_bwd_ref(_t(q), _t(k), _t(v), out, lse,
+                                        _t(_rand(27, (2, 8, 4, 32))),
+                                        lengths=lengths)
+    assert not dq[1].any() and not dk[1].any() and not dv[1].any()
+    assert torch.isfinite(dq).all() and dq[0].abs().max() > 0
+
+
 def test_paged_plain_bitwise_equals_contiguous():
     """With max_pages * page == S the paged gather rebuilds the contiguous
     view exactly, so the two plain versions agree bit for bit — the
@@ -190,6 +249,35 @@ def test_cuda_wrappers_refuse_cpu_tensors():
             q, torch.zeros(3, 4, 2, 32), torch.zeros(3, 4, 2, 32),
             torch.zeros(1, 2, dtype=torch.int32),
             torch.ones(1, dtype=torch.int32))
+    assert all(n == 0 for n in tcuda.launches.values())
+
+
+def test_cuda_wrappers_refuse_grad_mode_before_anything_else():
+    """A kernel without a backward would hand autograd an output with no
+    history and drop its inputs' gradients silently; in grad mode with an
+    input that requires grad each wrapper raises, naming what is missing,
+    before any other check."""
+    q = torch.zeros(1, 4, 32, requires_grad=True)
+    k = torch.zeros(1, 8, 2, 32)
+    lengths = torch.ones(1, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="decode_attention has no backward"):
+        tcuda.decode_attention(q, k, k, lengths)
+    with pytest.raises(RuntimeError,
+                       match="paged_decode_attention has no backward"):
+        tcuda.paged_decode_attention(q, torch.zeros(3, 4, 2, 32),
+                                     torch.zeros(3, 4, 2, 32),
+                                     torch.zeros(1, 2, dtype=torch.int32),
+                                     lengths)
+    with pytest.raises(RuntimeError, match="ops.attention"):
+        tcuda.flash_attention(torch.zeros(1, 8, 4, 32, requires_grad=True),
+                              k, k)
+    x = torch.zeros(1, 8, 32, requires_grad=True)
+    with pytest.raises(RuntimeError, match="selective-scan backward"):
+        tcuda.selective_scan(x, x.detach(), torch.zeros(32, 16),
+                             torch.zeros(1, 8, 16), torch.zeros(1, 8, 16),
+                             torch.zeros(32))
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        tcuda.decode_attention(q, k, k, lengths)     # no grad mode: no guard
     assert all(n == 0 for n in tcuda.launches.values())
 
 
