@@ -168,7 +168,9 @@ plain PyTorch version. Phases, in order:
    length counts the patches. Each prints the walls per decode iteration
    and prefill group and profiled windows;
 13. training: (13a) the flash kernel's `lse` and the two backward kernels
-   (dK/dV and dQ, ``csrc/flash_attention_bwd.cu``) against
+   (dQ, which writes each row's Delta, then dK/dV, which reads it;
+   ``csrc/flash_attention_bwd.cu``: bf16 on the tensor-core body, f32 on
+   the CUDA-core one, each launch counted by body) against
    ``attention_lse_ref`` / ``attention_bwd_ref`` in f32 (1e-4) and bf16
    (2e-2, both relative to max |grad|) at granite-3-2b's training shape
    (8 x 512, H 32, KV 8, hd 64, causal), llama3's hd 128, zamba2's hd 80,
@@ -177,7 +179,9 @@ plain PyTorch version. Phases, in order:
    products of 2 hd FLOPs per attended pair and head over the f32 or
    bf16 peak, against bytes), the plain version and SDPA's backward
    (``torch.autograd.grad`` of ``scaled_dot_product_attention``, a
-   yardstick only); (13b) smoke-size training, f32 with TF32 off, on the
+   yardstick only), and two launches must give bitwise-equal gradients;
+   the granite rows of both dtypes go into the kernels' line; (13b)
+   smoke-size training, f32 with TF32 off, on the
    card against the CPU: the loss and every gradient of one remat loss
    and one train step (grad norm, params after AdamW) for llama3-8b,
    granite-3-2b, qwen2-moe, seamless-m4t-medium and pixtral-12b, the
@@ -186,11 +190,14 @@ plain PyTorch version. Phases, in order:
    (13c) full-width, full-depth granite-3-2b, f32 params and AdamW,
    remat, 8 x 512 from ``packed_batches``, 10 steps through
    ``build_train_step``: finite loss and grad norm every step, flash 80
-   (40 + 40 recomputed) and dQ = dK/dV = 40 a step, the wall per step,
+   (40 + 40 recomputed) and dQ = dK/dV = 40 a step on the CUDA-core
+   backward body, the wall per step,
    tokens/s, peak memory, a profiled step (busy time, the backward
    kernels' share) and a checkpoint saved and restored bitwise.
 
-It prints the kernels' JSON line, the card line, and last the result
+It prints the kernels' JSON line (the backward's bf16 rows follow its f32
+ones under the same names, with `dtype` and `body` keys), the card line,
+and last the result
 line {"ok": true, "device": {...}}. With no CUDA device, or outside a
 checkout of the repo, it exits non-zero and prints no result. Every
 process it starts (nvcc, nvidia-smi, the CLI server) ends before it
@@ -2480,26 +2487,20 @@ GRANITE_BATCH = (8, 512)
 
 def _bwd_launches(kc, q, k, v, out, lse, dout, *, causal, window,
                   lengths):
-    """{kernel name: one launch of that backward kernel alone}, each
-    through `kc._run` with the arguments `kc.flash_attention_bwd` gives
-    it, on gradient buffers allocated once, so each kernel can be timed
-    on its own (the wrapper always launches both)."""
-    b, sq, h, hd = q.shape
-    _, sk, kv, _ = k.shape
+    """{kernel name: one launch of that backward kernel alone}, in the
+    wrapper's order (dQ, which writes Delta, then dK/dV, which reads it),
+    each through `kc._bwd_launch` as `kc.flash_attention_bwd` makes it, on
+    gradient and Delta buffers allocated once, so each kernel can be timed
+    on its own."""
     dq, dk, dv = (x.new_empty(x.shape) for x in (q, k, v))
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), dout.data_ptr(),
-            lengths.data_ptr() if lengths is not None else None)
-    dims = (b, sq, sk, h, kv, hd, int(bool(causal)), kc._window(window),
-            kc._scale(None, hd), kc._stream())
-    code = kc._dtype("flash_attention_bwd", q)
+    delta = lse.new_empty(lse.shape)        # f32 (B, H, Sq), as lse
+    args = (q, k, v, out, lse, dout, lengths, delta)
+    opts = (causal, window, None)
     return {
-        "flash_attention_bwd_dkdv": lambda: kc._run(
-            "flash_attention_bwd_dkdv", None, code, *ptrs, dk.data_ptr(),
-            dv.data_ptr(), *dims),
-        "flash_attention_bwd_dq": lambda: kc._run(
-            "flash_attention_bwd_dq", None, code, *ptrs, dq.data_ptr(),
-            *dims)}
+        "flash_attention_bwd_dq": lambda: kc._bwd_launch(
+            "flash_attention_bwd_dq", *args, (dq,), *opts),
+        "flash_attention_bwd_dkdv": lambda: kc._bwd_launch(
+            "flash_attention_bwd_dkdv", *args, (dk, dv), *opts)}
 
 
 def check_backward_kernels(torch):
@@ -2507,8 +2508,11 @@ def check_backward_kernels(torch):
     attention_lse_ref / attention_bwd_ref at training shapes, f32 and
     bf16, each timed (L2 flushed) beside its bound, the plain version
     and SDPA's backward (torch.autograd.grad of
-    F.scaled_dot_product_attention; a yardstick only). Returns the JSON
-    rows of the two kernels at granite's f32 training shape."""
+    F.scaled_dot_product_attention; a yardstick only); each dtype must
+    run its body (bf16 tensor cores, f32 CUDA cores) and two launches
+    must agree bitwise. Returns the JSON rows of the two kernels at
+    granite's training shape: f32 under the kernels' names, bf16 under
+    "<name>/bfloat16"."""
     from repro_torch.kernels import cuda as kc
     from repro_torch.kernels import ref
 
@@ -2534,7 +2538,18 @@ def check_backward_kernels(torch):
             if not torch.equal(torch.isinf(lse), empty):
                 fail(f"13a {label} {name}: lse's empty rows differ")
             lse_err = (lse - lse_ref)[~empty].abs().max().item()
+            body = ("flash_attention_bwd/tensor_core" if dt == torch.bfloat16
+                    else "flash_attention_bwd/cuda_core")
+            n_body = kc.variant_launches[body]
             grads = kc.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+            if kc.variant_launches[body] != n_body + 2:
+                fail(f"13a {label} {name}: the backward did not run the "
+                     f"{body} body twice: {dict(kc.variant_launches)}")
+            again = kc.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+            if not all(torch.equal(a, g) for a, g in zip(again, grads)):
+                fail(f"13a {label} {name}: two launches of the backward "
+                     "differ (it must be deterministic)")
+            del again
             expect = ref.attention_bwd_ref(q, k, v, out, lse, dout, **kw)
             # (dq, dk, dv): |difference| and its ratio to max |grad|
             diffs = [(g.float() - e.float()).abs().max().item()
@@ -2556,11 +2571,17 @@ def check_backward_kernels(torch):
                 vis &= kp > qp - window
             pairs = int(vis.sum()) * h
             isz = q.element_size()
-            n_in = (3 * b * sq * h * hd + 2 * b * sk * kv * hd) * isz \
-                + b * h * sq * 4
-            n_out = {"flash_attention_bwd_dkdv": 2 * b * sk * kv * hd * isz,
-                     "flash_attention_bwd_dq": b * sq * h * hd * isz}
-            n_out["backward"] = sum(n_out.values())
+            # bytes each function reads once and writes once: each reads
+            # q, dO, k, v and lse; the whole backward and dQ read O, dQ
+            # writes Delta (f32, lse's shape) and dK/dV reads it
+            qbytes, stats = b * sq * h * hd * isz, b * h * sq * 4
+            shared = 2 * qbytes + 2 * b * sk * kv * hd * isz + stats
+            n_bytes = {
+                "backward":
+                    shared + 2 * qbytes + 2 * b * sk * kv * hd * isz,
+                "flash_attention_bwd_dq": shared + 2 * qbytes + stats,
+                "flash_attention_bwd_dkdv":
+                    shared + stats + 2 * b * sk * kv * hd * isz}
             t = {"backward": time_ms(torch, lambda: kc.flash_attention_bwd(
                 q, k, v, out, lse, dout, **kw), flush)}
             for kname, launch in _bwd_launches(
@@ -2582,7 +2603,7 @@ def check_backward_kernels(torch):
                 lib_ms = time_ms(torch, lambda: torch.autograd.grad(
                     o, (qs, ks, vs), go, retain_graph=True), flush)
                 del o, qs, ks, vs
-            bound = {key: bound_ms(n_in + n_out[key],
+            bound = {key: bound_ms(n_bytes[key],
                                    (BWD_PRODUCTS[key] * 2 * hd * pairs,
                                     peak))
                      for key in t}
@@ -2594,18 +2615,25 @@ def check_backward_kernels(torch):
                   f"{t['flash_attention_bwd_dq']:.4f}), bound "
                   f"{bound['backward'][0]:.4f} ms ({bound['backward'][1]}), "
                   f"plain {plain_ms:.4f} ms, SDPA backward "
-                  f"{('%.4f ms' % lib_ms) if lib_ms is not None else 'n/a'}",
+                  f"{('%.4f ms' % lib_ms) if lib_ms is not None else 'n/a'}"
+                  f"; two launches bitwise equal",
                   flush=True)
-            if label.startswith("granite") and dt == torch.float32:
-                # dK/dV's gradients are the last two, dQ's the first
+            if label.startswith("granite"):
+                # dK/dV's gradients are the last two, dQ's the first; the
+                # f32 rows under the kernels' names, the bf16 ones beside
                 for kname, sl in zip(BWD_KERNELS, (slice(1, 3),
                                                    slice(0, 1))):
-                    rows[kname] = dict(
+                    rows[kname if dt == torch.float32 else
+                         f"{kname}/{name}"] = dict(
+                        dtype=name, body=body.split("/")[1],
                         max_abs_err=max(diffs[sl]), max_rel_err=max(rels[sl]),
                         ms=t[kname], plain_ms=plain_ms,
                         bound_ms=bound[kname][0], bound_by=bound[kname][1],
                         library_ms=lib_ms)
             del q, k, v, dout, out, lse, grads, expect, vis
+    print(f"  13a backward launches by body: "
+          f"{ {k: n for k, n in kc.variant_launches.items() if 'bwd' in k} }",
+          flush=True)
     del flush
     torch.cuda.empty_cache()
     return rows
@@ -2734,7 +2762,8 @@ def check_granite_training(torch, card):
     heads of hd 64, vocab 49155, tied), f32 params and AdamW, remat on,
     batch 8 x 512 from packed_batches, GRANITE_STEPS steps through
     build_train_step, the launch counters set to 0 before each step and
-    read after: flash 80 (40 + 40 recomputed), dQ = dK/dV = 40. Then a
+    read after: flash 80 (40 + 40 recomputed), dQ = dK/dV = 40 (f32: the
+    CUDA-core backward body, 80 launches). Then a
     checkpoint saved and restored bitwise. Returns the launches."""
     import tempfile
 
@@ -2775,9 +2804,12 @@ def check_granite_training(torch, card):
         walls.append(time.perf_counter() - t0)
         losses.append(loss)
         n = {k: kc.launches[k] for k in total}
-        if n != want or kc.launches["decode_attention"]:
+        if (n != want or kc.launches["decode_attention"]
+                or kc.variant_launches["flash_attention_bwd/cuda_core"]
+                != 2 * L):
             fail(f"13c granite step {i + 1}: launches {dict(kc.launches)}, "
-                 f"expected {want}")
+                 f"by body {dict(kc.variant_launches)}, expected {want} "
+                 f"and {2 * L} backward launches on the CUDA-core body")
         for k in total:
             total[k] += n[k]
         if not (math.isfinite(loss) and math.isfinite(gnorm)):
@@ -3055,9 +3087,13 @@ def main() -> None:
 
     kernels = []
     for name, (src, rep) in SOURCES.items():
-        kernels.append(dict(name=name, route="cuda", source=src,
-                            replaces=rep, launches=launches[name],
-                            **rows[name]))
+        # the backward's bf16 (tensor-core) rows follow its f32 ones under
+        # the same name; `launches` counts the entry point on the main path
+        for key in (name, f"{name}/bfloat16"):
+            if key in rows:
+                kernels.append(dict(name=name, route="cuda", source=src,
+                                    replaces=rep, launches=launches[name],
+                                    **rows[key]))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

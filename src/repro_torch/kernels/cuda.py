@@ -4,9 +4,10 @@ Each wrapper checks device, dtype, shape, contiguity and alignment,
 allocates the output with ``torch.empty``, launches on PyTorch's current
 stream, raises if the launch returned a CUDA error, and adds one to its
 entry in ``launches`` — there and nowhere else, so a run can show that it
-went through the kernel. ``variant_launches`` counts the flash launches
-by the body they ran (tensor-core or CUDA-core); ``flash_plan`` picks the
-tensor-core body's query-tile height from the grid's size.
+went through the kernel. ``variant_launches`` counts the flash launches,
+forward and backward, by the body they ran (tensor-core for bf16,
+CUDA-core for f32); ``flash_plan`` picks the tensor-core body's
+query-tile height from the grid's size.
 
 The decode wrappers plan their split-KV launch on the host with
 ``decode_plan`` (from the cache's capacity, never from ``lengths``, which
@@ -18,9 +19,10 @@ staged per chunk, from the shapes alone. The kernels' sources and design
 notes are in ``csrc/``.
 
 ``flash_attention(..., return_lse=True)`` also returns each row's
-log-sum-exp, from which ``flash_attention_bwd`` (two launches, dK/dV and
-dQ) computes the gradients; ``kernels/ops.py:FlashAttention`` ties the
-two together for autograd. No other wrapper has a backward, so every
+log-sum-exp, from which ``flash_attention_bwd`` (two launches: dQ, which
+also writes each row's Delta = rowsum(dO o O) to a buffer, then dK/dV,
+which reads it) computes the gradients; ``kernels/ops.py:FlashAttention``
+ties the two together for autograd. No other wrapper has a backward, so every
 wrapper refuses, in grad mode, inputs that require grad (``_no_grad``):
 a launch would hand autograd an output with no history and the inputs'
 gradients would be lost without an error.
@@ -44,10 +46,13 @@ launches = {
     "selective_scan": 0,
 }
 
-#: flash launches by the body they ran
+#: flash launches (forward, and each of the two backward kernels) by the
+#: body they ran, which follows from the dtype
 variant_launches = {
     "flash_attention/tensor_core": 0,     # bf16: mma.sync
     "flash_attention/cuda_core": 0,       # f32: FMA
+    "flash_attention_bwd/tensor_core": 0,
+    "flash_attention_bwd/cuda_core": 0,
 }
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -64,8 +69,8 @@ _SIGS = {
                         _I, _I, _I, _F, _I, _P],
     "flash_attention_bwd_dkdv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                  _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    "flash_attention_bwd_dq": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                               _I, _I, _I, _I, _I, _I, _F, _P],
+    "flash_attention_bwd_dq": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                               _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "selective_scan": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                        _I, _I, _L, _L, _L, _L, _P],
 }
@@ -138,12 +143,20 @@ def _ints(name: str, t: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _run(name: str, variant: Optional[str], *args) -> None:
+    """Launch entry point `name`; `variant` is its key in
+    ``variant_launches``, or None."""
     err = _fn(name)(*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     launches[name] += 1
     if variant is not None:
-        variant_launches[f"{name}/{variant}"] += 1
+        variant_launches[variant] += 1
+
+
+def _body(family: str, t: torch.Tensor) -> str:
+    """The ``variant_launches`` key of the body a `t.dtype` launch runs."""
+    return family + ("/tensor_core" if t.dtype == torch.bfloat16
+                     else "/cuda_core")
 
 
 def _stream() -> int:
@@ -328,8 +341,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, lengths=None,
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     code = _dtype(name, q)
-    _run(name, "tensor_core" if q.dtype == torch.bfloat16 else "cuda_core",
-         code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    _run(name, _body(name, q), code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
          lens.data_ptr() if lens is not None else None,
          offs.data_ptr() if offs is not None else None,
          out.data_ptr(), lse.data_ptr() if lse is not None else None,
@@ -344,8 +356,12 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True,
                         sm_scale=None):
     """Gradients of ``flash_attention`` from its output `out` and `lse`
     and the output's gradient `dout` (B,Sq,H,hd) -> (dq, dk, dv) in the
-    inputs' dtype. Two launches: dK/dV over key tiles (GQA summed in the
-    block), then dQ over query tiles. Training has no query offset, so
+    inputs' dtype. Two launches on one stream: dQ over query tiles, which
+    also writes each row's Delta = rowsum(dO o O) into an f32 (B,H,Sq)
+    buffer allocated here, then dK/dV over key tiles (GQA summed in the
+    block), which reads it. bf16 runs the tensor-core bodies, f32 the
+    CUDA-core ones in IEEE f32 (``variant_launches`` counts each launch by
+    its body); both are deterministic. Training has no query offset, so
     `q_offset` is refused."""
     name = "flash_attention_bwd"
     if q_offset is not None:
@@ -361,17 +377,33 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True,
                          f"{(b, h, sq)}")
     _check(name, out, dout, dtype=q.dtype)
     _check(name, lse, dtype=torch.float32)
-    code = _dtype(name, q)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), dout.data_ptr(),
-            lens.data_ptr() if lens is not None else None)
-    dims = (b, sq, sk, h, kv, hd, int(bool(causal)), _window(window),
-            _scale(sm_scale, hd), _stream())
-    _run("flash_attention_bwd_dkdv", None, code, *ptrs, dk.data_ptr(),
-         dv.data_ptr(), *dims)
-    _run("flash_attention_bwd_dq", None, code, *ptrs, dq.data_ptr(), *dims)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    _bwd_launch("flash_attention_bwd_dq", q, k, v, out, lse, dout, lens,
+                delta, (dq,), causal, window, sm_scale)
+    _bwd_launch("flash_attention_bwd_dkdv", q, k, v, out, lse, dout, lens,
+                delta, (dk, dv), causal, window, sm_scale)
     return dq, dk, dv
+
+
+def _bwd_launch(name, q, k, v, out, lse, dout, lens, delta, grads, causal,
+                window, sm_scale) -> None:
+    """One backward kernel, on tensors `flash_attention_bwd` has checked:
+    dQ (`grads` = (dq,)) reads `out` and writes `delta`; dK/dV (`grads` =
+    (dk, dv)) reads `delta`."""
+    b, sq, h, hd = q.shape
+    _, sk, kv, _ = k.shape
+    lp = lens.data_ptr() if lens is not None else None
+    if name == "flash_attention_bwd_dq":
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), dout.data_ptr(), lp, delta.data_ptr())
+    else:
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dout.data_ptr(), lp)
+    _run(name, _body("flash_attention_bwd", q),
+         _dtype("flash_attention_bwd", q), *ptrs,
+         *(g.data_ptr() for g in grads), b, sq, sk, h, kv, hd,
+         int(bool(causal)), _window(window), _scale(sm_scale, hd), _stream())
 
 
 SCAN_STATES = (4, 8, 16, 32, 64)

@@ -37,7 +37,7 @@ from repro_torch.kernels import ref as _ref
 class FlashAttention(torch.autograd.Function):
     """The flash kernel with its hand-written backward: the forward also
     writes each row's log-sum-exp and saves q, k, v, out and lse; the
-    backward launches ``flash_attention_bwd`` (dK/dV, then dQ). Under
+    backward launches ``flash_attention_bwd`` (dQ, then dK/dV). Under
     ``torch.utils.checkpoint`` the recomputed forward launches the kernel
     again and saves afresh."""
 

@@ -24,7 +24,9 @@ Mamba-2 recurrence at the scan's tolerances, N 64 and D 5120 included.
 The flash kernel's `lse` output is held against ``attention_lse_ref``
 and the backward kernels against ``attention_bwd_ref`` (f32 1e-4, bf16
 2e-2, relative to the largest |gradient|: the gradients sum over a whole
-row or column, so their scale is not the inputs'), the autograd Function
+row or column, so their scale is not the inputs'), at their tiles' ragged
+edges too, bitwise equal over two launches, on the body their dtype
+selects (bf16 tensor cores, f32 CUDA cores); the autograd Function
 through ``torch.utils.checkpoint`` against torch autograd of the plain
 attention on the CPU, and every kernel without a backward must raise in
 grad mode rather than drop gradients.
@@ -827,6 +829,15 @@ BWD_CASES = [
     (3, 64, 64, 4, 2, 64, True, [64, 0, 10], 8),
     (2, 512, 256, 16, 16, 64, False, [256, 131], None),
     (1, 130, 130, 32, 8, 128, True, None, 33),
+    # the tiles' edges: Sk not a multiple of the 64-key tile, hd 80 past
+    # the bf16 body's register-held fragments, hd 128 with G = 8 (the f32
+    # body's 32-query dK/dV tiles), Sq != Sk bidirectional with a row of
+    # length 1, and fewer queries than one tile over a ragged window
+    (2, 100, 100, 4, 2, 64, True, None, None),
+    (1, 77, 77, 8, 8, 80, True, [77], None),
+    (1, 130, 130, 16, 2, 128, True, None, None),
+    (2, 96, 50, 4, 4, 64, False, [1, 50], None),
+    (1, 33, 190, 8, 2, 32, False, [190], 20),
 ]
 
 
@@ -871,6 +882,34 @@ def test_flash_lse_and_backward_kernels(dev, case, dtype):
     # rows that attend nothing get no gradient
     rows = empty.transpose(1, 2)                        # (B, Sq, H)
     assert not grads[0][rows].any()
+
+
+@pytest.mark.parametrize("case", [BWD_CASES[i] for i in (0, 1, 5, 10, 11)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_is_deterministic(dev, case, dtype):
+    """Two launches of the backward give bitwise-equal gradients: each
+    element is summed by one thread in a fixed order, with no atomics."""
+    q, k, v, dout, kw = _bwd_inputs(case, dtype, dev)
+    out, lse = tcuda.flash_attention(q, k, v, return_lse=True, **kw)
+    first = tcuda.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    second = tcuda.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_body_follows_dtype(dev, dtype):
+    """bf16 runs the tensor-core body and f32 the CUDA-core one, both
+    kernels of each backward, and nothing else moves."""
+    q, k, v, dout, kw = _bwd_inputs(BWD_CASES[0], dtype, dev)
+    out, lse = tcuda.flash_attention(q, k, v, return_lse=True, **kw)
+    body = ("flash_attention_bwd/tensor_core" if dtype == torch.bfloat16
+            else "flash_attention_bwd/cuda_core")
+    before = dict(tcuda.variant_launches)
+    tcuda.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    moved = {key: n - before[key]
+             for key, n in tcuda.variant_launches.items() if n != before[key]}
+    assert moved == {body: 2}
 
 
 def test_flash_backward_refuses_q_offset(dev):
