@@ -9,9 +9,12 @@ Qwen1.5-MoE-A2.7B, SeamlessM4T-medium and Pixtral-12B configs with random
 bf16 weights made from a seed, the
 HTTP/SSE server over the Llama-3-8B engine on the wall clock, the cluster
 layer over engine-backed Llama-3-8B replicas, and speculative decoding
-over the Llama-3-8B target, and training of the full-width Granite-3-2B
-— and holds every hand-written CUDA kernel on those paths against its
-plain PyTorch version. Phases, in order:
+over the Llama-3-8B target cut to 16 of its 32 layers (full width), and
+training of the full-width Granite-3-2B
+and Zamba2-2.7B and of Falcon-Mamba-7B cut to 24 of its 64 layers (f32
+AdamW of all 64 needs about 116 GB) — and holds every hand-written CUDA
+kernel on those paths against its plain PyTorch version. Phases, in
+order:
 
 1. the device: name and power limit from nvidia-smi;
 2. build the CUDA kernels (one nvcc per source, in parallel), and count
@@ -107,8 +110,10 @@ plain PyTorch version. Phases, in order:
    admitted, shed and defer counts, preemptions, the fleet QoE and TTFT
    modelled by TPU_V5E, and the card's wall per decode iteration and per
    prefill group per replica;
-10. speculative decoding over phase 5's llama3-8b model and weights (k =
-   3, 8 slots, max_seq 1024, phase 5's trace, Andes, the
+10. speculative decoding over phase 5's llama3-8b model and weights cut
+   to their first 16 of 32 layers (full width; the depth cut keeps the
+   script inside its time) (k = 3, 8 slots, max_seq 1024, phase 5's
+   trace, Andes, the
    SpeculativeLatencyModel on TPU_V5E): first the kernels' half of full
    acceptance — from one prefilled cache the target's verify of a window
    is bitwise the draft-side decode steps that proposed it — and a
@@ -180,23 +185,42 @@ plain PyTorch version. Phases, in order:
    bf16 peak, against bytes), the plain version and SDPA's backward
    (``torch.autograd.grad`` of ``scaled_dot_product_attention``, a
    yardstick only), and two launches must give bitwise-equal gradients;
-   the granite rows of both dtypes go into the kernels' line; (13b)
-   smoke-size training, f32 with TF32 off, on the
+   the granite rows of both dtypes go into the kernels' line; then the
+   scan: the forward's chunk states (y bitwise the same without them)
+   and the backward kernel (``csrc/selective_scan_bwd.cu``) against
+   ``selective_scan_bwd_ref`` in f32 (1e-4) and bf16 (2e-2, relative to
+   each gradient's max magnitude) at falcon-mamba's Mamba-1 (8 x 512, D
+   8192, N 16), zamba2's Mamba-2 through ``ops.ssd_scan_args`` (8 x 512,
+   NH 80, HD 64, N 64) and a ragged-dt Mamba-1 case, two launches
+   bitwise equal, each timed with L2 flushed beside its bound (19 f32
+   FLOPs and at least one exp per (b, t, d, n), against bytes) and the
+   plain version; the falcon-mamba rows of both dtypes go into the
+   kernels' line; (13b) smoke-size training, f32 with TF32 off, on the
    card against the CPU: the loss and every gradient of one remat loss
    and one train step (grad norm, params after AdamW) for llama3-8b,
-   granite-3-2b, qwen2-moe, seamless-m4t-medium and pixtral-12b, the
-   backward launches one per attention call; falcon-mamba must refuse
-   grad mode on the card; 50 llama3 steps must lower the loss by 1.0;
+   granite-3-2b, qwen2-moe, seamless-m4t-medium, pixtral-12b,
+   falcon-mamba-7b and zamba2-2.7b, the backward launches one per
+   attention call and per Mamba layer, the scan forward two (remat); 50
+   llama3 steps must lower the loss by 1.0;
    (13c) full-width, full-depth granite-3-2b, f32 params and AdamW,
    remat, 8 x 512 from ``packed_batches``, 10 steps through
    ``build_train_step``: finite loss and grad norm every step, flash 80
    (40 + 40 recomputed) and dQ = dK/dV = 40 a step on the CUDA-core
    backward body, the wall per step,
    tokens/s, peak memory, a profiled step (busy time, the backward
-   kernels' share) and a checkpoint saved and restored bitwise.
+   kernels' share) and a checkpoint saved and restored bitwise; (13d)
+   full-width, full-depth zamba2-2.7b (45 Mamba-2 layers, 9 applications
+   of the shared attention, 2.168 B params) and (13e) falcon-mamba-7b cut
+   to its first 24 of 64 layers (3.06 B params), each f32 params and
+   AdamW, remat, 8 x 512 from ``packed_batches``, 5 and 3 steps: finite
+   loss and grad norm every step, per step the scan 2 x the Mamba layers
+   (90; 48), its backward once per Mamba layer (45; 24), flash 18 and dQ
+   = dK/dV = 9 (zamba2), the wall per step, tokens/s, peak memory and a
+   profiled step (busy time, idle share, the scan backward's share).
 
-It prints the kernels' JSON line (the backward's bf16 rows follow its f32
-ones under the same names, with `dtype` and `body` keys), the card line,
+It prints the kernels' JSON line (the backwards' bf16 rows follow their
+f32 ones under the same names, with `dtype` keys, and `body` keys for
+flash's), the card line,
 and last the result
 line {"ok": true, "device": {...}}. With no CUDA device, or outside a
 checkout of the repo, it exits non-zero and prints no result. Every
@@ -206,6 +230,7 @@ returns.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -1804,6 +1829,26 @@ def check_cluster(torch, model, params):
 # ---------------------------------------------------------------------------
 
 SPEC_K = 3                  # speculative_backend's default
+# phase 10 runs over phase 5's llama3-8b cut to its first SPEC_LAYERS of
+# 32 layers, at full width: its wall grows with the depth (282 s of the
+# whole script's 1024 s with all 32 on an NVIDIA H100 80GB HBM3 at 700 W),
+# and the script is to stay well inside 1200 s
+SPEC_LAYERS = 16
+
+
+def depth_cut(model, params, n):
+    """`model` cut to its first n layers at full width: a Model of the
+    config with num_layers n over views of the stacked block weights."""
+    from repro_torch.models import Model
+
+    def first(tree):
+        if isinstance(tree, dict):
+            return {k: first(v) for k, v in tree.items()}
+        return tree[:n]
+
+    cut = Model(dataclasses.replace(model.cfg, num_layers=n),
+                device=model.device)
+    return cut, {**params, "blocks": first(params["blocks"])}
 
 
 def serve_spec(torch, model, params, draft, dparams, trace, *, hotpath=None,
@@ -1947,13 +1992,13 @@ def check_verify_determinism(torch, model, params):
 
 
 def check_speculative(torch, model, params, card):
-    """Phase 10: the speculative engine over phase 5's full-width model
-    and bf16 weights, phase 5's trace, k = 3, 8 slots, max_seq 1024.
+    """Phase 10: the speculative engine over phase 5's model and bf16
+    weights cut in depth (SPEC_LAYERS, full width), phase 5's trace, k = 3,
+    8 slots, max_seq 1024.
     10a exact draft, 10b perturbed draft (blocks and single rounds), 10c
     the reference test's small foreign draft, 10d a 1-replica
     speculative_backend cluster. Returns the kernel launches of its
     runs."""
-    import dataclasses
     from repro_torch.cluster import ClusterConfig, speculative_backend
     from repro_torch.core import TPU_V5E, LatencyModel, SchedulerConfig
     from repro_torch.models import Model
@@ -2479,10 +2524,18 @@ BWD_CASES = (
      4, 512, 512, 32, 8, 64, True, None, 128),
 )
 TRAIN_ARCHS = ("llama3-8b", "granite-3-2b", "qwen2-moe-a2.7b",
-               "seamless-m4t-medium", "pixtral-12b")
+               "seamless-m4t-medium", "pixtral-12b", "falcon-mamba-7b",
+               "zamba2-2.7b")
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
 GRANITE_STEPS = 10
 GRANITE_BATCH = (8, 512)
+# 13d / 13e: the scan families, f32 AdamW at 8 x 512. falcon-mamba-7b is
+# cut in depth: all 64 layers need 7.26 B params x 16 bytes = 116 GB; 24
+# of them (3.06 B params, 48.9 GB) fit the card with their activations
+ZAMBA2_STEPS = 5
+FALCON_STEPS = 3
+FALCON_LAYERS = 24
+SCAN_TRAIN_BATCH = (8, 512)
 
 
 def _bwd_launches(kc, q, k, v, out, lse, dout, *, causal, window,
@@ -2639,6 +2692,117 @@ def check_backward_kernels(torch):
     return rows
 
 
+# the scan backward's rows in 13a: (label, kind, lengths); Mamba-1 at
+# falcon-mamba-7b's d_inner 8192, N 16 (dt_rank 256), Mamba-2 at
+# zamba2-2.7b's NH 80, HD 64, N 64 through ops.ssd_scan_args
+SCAN_BWD_CASES = (
+    ("falcon-mamba Mamba-1: 8 x 512, D 8192, N 16", "mamba1", [512] * 8),
+    ("zamba2 Mamba-2 via ssd_scan_args: 8 x 512, NH 80, HD 64, N 64",
+     "mamba2", [512] * 8),
+    ("falcon-mamba Mamba-1, ragged dt: 4 x 512, lengths 512/389/200/64",
+     "mamba1", [512, 389, 200, 64]),
+)
+# f32 operations per (b, t, d, n) the backward needs: recompute h_t (the
+# decay's product, the input's product, the FMA: 4), the adjoint (a
+# product and an FMA: 3), sum_n g B (2), g a h_{t-1} (2) and its sums into
+# ddt and dA (4), g u and dy h into dB and dC (4); and per (b, t, d): u,
+# dx, ddt's x term and dD (7)
+SCAN_BWD_FLOPS = (19, 7)
+
+
+def scan_bwd_bound(torch, b, s, d, n, isz):
+    """The scan backward's bound -> (ms, by, detail): x, dt, dy, B, C, A
+    and D read once, dx, ddt, dB, dC, dA and dD written once, against
+    SCAN_BWD_FLOPS over the f32 peak and one exp per (b, t, d, n)."""
+    el = b * s * d
+    nbytes = (5 * el * isz + 4 * b * s * n * isz + 2 * (d * n + d) * 4)
+    flops = SCAN_BWD_FLOPS[0] * el * n + SCAN_BWD_FLOPS[1] * el
+    rate = exp_rate(torch)
+    b_ms, b_by = bound_ms(nbytes, (flops, F32_FLOPS), (el * n, rate))
+    return b_ms, b_by, (
+        f"bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, f32 FLOPs "
+        f"{flops / F32_FLOPS * 1e3:.4f} ms, {el * n / 1e6:.1f} M exp "
+        f"{el * n / rate * 1e3:.4f} ms")
+
+
+def check_scan_backward(torch):
+    """13a, the scan: the forward's chunk states and the backward kernel
+    (csrc/selective_scan_bwd.cu) against selective_scan_bwd_ref at
+    falcon-mamba's and zamba2's training shapes (SCAN_BWD_CASES), f32
+    (1e-4) and bf16 (2e-2), each gradient relative to its max magnitude;
+    y must be bitwise the same with and without the chunk states, two
+    backward launches bitwise equal. Timed with L2 flushed beside its
+    bound and the plain version (no one PyTorch call computes it).
+    Returns the falcon-mamba 8 x 512 rows: f32 under the kernel's name,
+    bf16 under "selective_scan_bwd/bfloat16"."""
+    from repro_torch.kernels import cuda as kc
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref
+
+    flush = _L2Flush(torch)
+    gen = torch.Generator().manual_seed(2)
+    rows = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        tol = BWD_TOL[name]
+        for label, kind, lengths in SCAN_BWD_CASES:
+            if kind == "mamba1":
+                args = scan_inputs(torch, gen, lengths, dt)
+            else:
+                args = ops.ssd_scan_args(*ssd_inputs(torch, gen, lengths, dt))
+            b, s, d = args[0].shape
+            n = args[2].shape[1]
+            y0 = kc.selective_scan(*args)
+            y, states, plan = kc.selective_scan(*args, save_states=True)
+            if not torch.equal(y, y0):
+                fail(f"13a {label} {name}: y differs with the chunk states")
+            dy = torch.randn((b, s, d), generator=gen).to("cuda", dt)
+            grads = kc.selective_scan_bwd(*args, states, dy, plan)
+            again = kc.selective_scan_bwd(*args, states, dy, plan)
+            if not all(torch.equal(a, g) for a, g in zip(again, grads)):
+                fail(f"13a {label} {name}: two launches of the scan "
+                     "backward differ (it must be deterministic)")
+            del again, y0, y
+            expect = ref.selective_scan_bwd_ref(*args, dy)
+            # (dx, ddt, dA, dB, dC, dD): |difference| and its ratio to
+            # max |grad|
+            diffs = [(g.float() - e.float()).abs().max().item()
+                     for g, e in zip(grads, expect)]
+            rels = [df / max(e.float().abs().max().item(), 1e-30)
+                    for df, e in zip(diffs, expect)]
+            if not max(rels) <= tol:
+                fail(f"13a {label} {name}: scan backward disagrees with its "
+                     f"plain version: relative errors {rels} (tol {tol})")
+            del expect
+            ms = time_ms(torch, lambda: kc.selective_scan_bwd(
+                *args, states, dy, plan), flush)
+            plain_ms = time_ms(torch, lambda: ref.selective_scan_bwd_ref(
+                *args, dy), flush, iters=3, warmup=1)
+            b_ms, b_by, detail = scan_bwd_bound(torch, b, s, d, n,
+                                                args[0].element_size())
+            print(f"  13a scan {label}, {name}: max|err| {max(diffs):.3e}, "
+                  f"max|err|/max|grad| {max(rels):.3e} (tol {tol}; dx, ddt, "
+                  f"dA, dB, dC, dD: {', '.join('%.1e' % r for r in rels)}); "
+                  f"plan {plan.npl} states per thread, {plan.steps} steps "
+                  f"per chunk; backward {ms:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by}: {detail}; kernel/bound {ms / b_ms:.2f}), plain "
+                  f"{plain_ms:.4f} ms, library none; y bitwise unchanged by "
+                  f"the chunk states ({tuple(states.shape)} f32, "
+                  f"{states.numel() * 4 / 1e6:.1f} MB); two launches bitwise "
+                  f"equal", flush=True)
+            if label.startswith("falcon-mamba Mamba-1: 8"):
+                rows["selective_scan_bwd" if dt == torch.float32 else
+                     f"selective_scan_bwd/{name}"] = dict(
+                    dtype=name, max_abs_err=max(diffs),
+                    max_rel_err=max(rels), ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            del args, dy, grads, states
+            torch.cuda.empty_cache()
+    del flush
+    torch.cuda.empty_cache()
+    return rows
+
+
 def _train_batch(torch, cfg, b, s, seed, device):
     """tokens, next-token labels (a few set to -1), and frames or patch
     embeddings where the kind takes them, made with numpy."""
@@ -2667,10 +2831,10 @@ def _excess(got, want, rtol):
 def check_small_training(torch):
     """13b: smoke-size training, f32, on the card (kernels) against the
     same on the CPU (plain versions): the loss and every gradient of one
-    remat loss, the backward launches equal to the attention calls, then
-    one train step (loss, grad norm, params after AdamW); falcon-mamba
-    must refuse to train on the card; 50 llama3 steps must lower the
-    loss by more than 1.0."""
+    remat loss, the backward launches equal to the attention calls and
+    to the Mamba layers (the forwards twice, under remat), then one train
+    step (loss, grad norm, params after AdamW); 50 llama3 steps must lower
+    the loss by more than 1.0."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import cuda as kc
     from repro_torch.models import Model
@@ -2685,7 +2849,9 @@ def check_small_training(torch):
     for arch in TRAIN_ARCHS:
         cfg = get_smoke_config(arch)
         n_attn = (cfg.num_encoder_layers + 2 * cfg.num_layers
-                  if cfg.kind in ("encdec", "audio") else cfg.num_layers)
+                  if cfg.kind in ("encdec", "audio")
+                  else len(cfg.attn_layer_ids()))
+        n_scan = len(cfg.ssm_layer_ids())
         models = {d: Model(cfg, remat=True, device=d) for d in ("cpu", "cuda")}
         params = {"cpu": models["cpu"].init(torch.Generator().manual_seed(0))}
         params["cuda"] = _to(params["cpu"], "cuda")
@@ -2699,7 +2865,8 @@ def check_small_training(torch):
         n = dict(kc.launches)
         want = {"flash_attention": 2 * n_attn,
                 "flash_attention_bwd_dq": n_attn,
-                "flash_attention_bwd_dkdv": n_attn}
+                "flash_attention_bwd_dkdv": n_attn,
+                "selective_scan": 2 * n_scan, "selective_scan_bwd": n_scan}
         if any(n[k] != v for k, v in want.items()) or n["decode_attention"]:
             fail(f"13b {arch}: launches {n}, expected {want}")
         loss_err = abs(loss_g.item() - loss_c.item()) / abs(loss_c.item())
@@ -2722,23 +2889,12 @@ def check_small_training(torch):
               f"{gn_err:.2e}, params after AdamW {p_err:.2e} (atol 2e-5); "
               f"launches flash {n['flash_attention']} = 2 x {n_attn} "
               f"attention calls (remat), dQ {n['flash_attention_bwd_dq']}, "
-              f"dK/dV {n['flash_attention_bwd_dkdv']}", flush=True)
+              f"dK/dV {n['flash_attention_bwd_dkdv']}; scan "
+              f"{n['selective_scan']} = 2 x {n_scan} Mamba layers, scan "
+              f"backward {n['selective_scan_bwd']}", flush=True)
         if not (loss_err <= 1e-5 and grad_err <= 2e-5 and gn_err <= 1e-5
                 and p_err <= 2e-5):
             fail(f"13b {arch}: the card's train step disagrees with the CPU's")
-    cfg = get_smoke_config("falcon-mamba-7b")
-    m = Model(cfg, device="cuda")
-    p = m.init(torch.Generator("cuda").manual_seed(0))
-    try:
-        build_train_step(m, OptimizerConfig(**TRAIN_OPT))(
-            p, init_opt_state(p), _train_batch(torch, cfg, 2, 32, 1, "cuda"))
-    except RuntimeError as e:
-        if "selective_scan has no backward" not in str(e):
-            raise
-        print(f"  13b falcon-mamba smoke refuses to train on the card: {e}",
-              flush=True)
-    else:
-        fail("13b falcon-mamba trained on the card without a scan backward")
     cfg = get_smoke_config("llama3-8b")
     m = Model(cfg, device="cuda")
     p = m.init(torch.Generator("cuda").manual_seed(0))
@@ -2852,10 +3008,86 @@ def check_granite_training(torch, card):
     return total
 
 
-def profile_train_step(torch, fn):
+def check_scan_training(torch, card, cfg, steps, label, cut=""):
+    """13d / 13e: a scan family at full width (`cut` states what was cut
+    in depth), f32 params and AdamW, remat on, SCAN_TRAIN_BATCH from
+    packed_batches, `steps` steps through build_train_step, the launch
+    counters set to 0 before each step and read after: the scan 2 x its
+    Mamba layers (forward and remat's recompute), its backward once per
+    Mamba layer, flash 2 x the attention applications and dQ = dK/dV
+    once each. Finite loss and grad norm every step; the wall per step,
+    tokens/s, peak memory and one profiled step. Returns the launches."""
+    from repro_torch.kernels import cuda as kc
+    from repro_torch.models import Model
+    from repro_torch.training import (OptimizerConfig, build_train_step,
+                                      init_train_state, packed_batches)
+    from repro_torch.training.optimizer import leaves
+
+    t_phase = time.perf_counter()
+    model = Model(cfg, device="cuda")
+    params, opt = init_train_state(
+        model, torch.Generator("cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in leaves(params))
+    n_scan, n_attn = len(cfg.ssm_layer_ids()), len(cfg.attn_layer_ids())
+    want = {"selective_scan": 2 * n_scan, "selective_scan_bwd": n_scan,
+            "flash_attention": 2 * n_attn, "flash_attention_bwd_dq": n_attn,
+            "flash_attention_bwd_dkdv": n_attn}
+    b, s = SCAN_TRAIN_BATCH
+    step = build_train_step(model, OptimizerConfig(
+        lr=3e-4, warmup_steps=2, total_steps=steps))
+    data = packed_batches(cfg.vocab_size, b, s, seed=0)
+    total = dict.fromkeys(want, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"  {cfg.name}{cut}: {n_params / 1e9:.3f} B params ({n_scan} "
+          f"Mamba layers, {n_attn} attention applications), f32 params + "
+          f"grads + AdamW moments; batch {b} x {s}; init "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    walls, losses = [], []
+    for i in range(steps):
+        batch = {k: torch.from_numpy(v).cuda() for k, v in next(data).items()}
+        kc.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, batch)
+        loss, gnorm = met["loss"].item(), met["grad_norm"].item()
+        walls.append(time.perf_counter() - t0)
+        losses.append(loss)
+        n = {k: kc.launches[k] for k in total}
+        if n != want or kc.launches["decode_attention"]:
+            fail(f"{label} {cfg.name} step {i + 1}: launches "
+                 f"{dict(kc.launches)}, expected {want}")
+        for k in total:
+            total[k] += n[k]
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            fail(f"{label} {cfg.name} step {i + 1}: loss {loss}, grad norm "
+                 f"{gnorm}")
+        print(f"  {label} step {i + 1}: loss {loss:.4f}, grad norm "
+              f"{gnorm:.4f}, wall {walls[-1]:.3f} s", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    steady = walls[1:]
+    wall = sum(steady) / len(steady)
+    print(f"  {label} {cfg.name}{cut} ({card}): {wall:.3f} s per step "
+          f"(steps 2-{steps}; step 1 {walls[0]:.3f} s), {b * s / wall:.0f} "
+          f"tokens/s, peak memory allocated {peak / 1e9:.2f} GB; loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; launches per step {want}",
+          flush=True)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(data).items()}
+    profile_train_step(torch, lambda: step(params, opt, batch), label, (
+        ("scan backward", "scan_bwd_"), ("scan forward", "scan_kernel<"),
+        ("flash backward", "::bwd_d"), ("flash forward", "flash_kernel")))
+    print(f"  phase {label} wall {time.perf_counter() - t_phase:.2f} s; "
+          f"launches {total}", flush=True)
+    del params, opt, model, step
+    torch.cuda.empty_cache()
+    return total
+
+
+def profile_train_step(torch, fn, label="13c", shares=(
+        ("backward kernels", "::bwd_d"), ("flash forward", "flash_kernel"))):
     """One train step under torch.profiler: wall, card-busy time, idle
-    share, and the backward kernels' and the flash forward's share of the
-    busy time."""
+    share, and the share of the busy time of each (label, kernel-name
+    substring) in `shares`."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2874,13 +3106,12 @@ def profile_train_step(torch, fn):
                   key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in kern) / 1e3
     if busy_ms <= 0:
-        print(f"  13c profile: device time not measured by the profiler "
+        print(f"  {label} profile: device time not measured by the profiler "
               f"(wall {wall_ms:.1f} ms)", flush=True)
         return
     share = {lab: sum(dev_us(e) for e in kern if key in e.key) / 1e3
-             for lab, key in (("backward kernels", "bwd_"),
-                              ("flash forward", "flash_kernel"))}
-    print(f"  13c profiled step (torch.profiler, on): wall {wall_ms:.1f} ms, "
+             for lab, key in shares}
+    print(f"  {label} profiled step (torch.profiler, on): wall {wall_ms:.1f} ms, "
           f"card busy {busy_ms:.1f} ms, idle share "
           f"{1 - busy_ms / wall_ms:.3f}, {sum(e.count for e in kern)} "
           f"kernels; " + ", ".join(
@@ -2975,6 +3206,11 @@ SOURCES = {
                         "src/repro/kernels/flash_attention.py:109"),
     "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
                        "src/repro/kernels/selective_scan.py:62"),
+    # no Pallas counterpart: the reference differentiates
+    # selective_scan_ref (and ssd_ref, mapped onto this scan) through XLA
+    "selective_scan_bwd": (
+        "src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
+        "src/repro/kernels/ref.py:123"),
     # no Pallas counterpart: the reference differentiates attention_ref
     # through XLA
     "flash_attention_bwd_dkdv": (
@@ -3062,9 +3298,11 @@ def main() -> None:
     add(check_cluster(torch, llama, llama_params))
     torch.cuda.empty_cache()
 
-    print("[10] speculative decoding over the full-width llama3-8b model "
-          f"(bf16, k={SPEC_K}, virtual clock; {card}):", flush=True)
-    add(check_speculative(torch, llama, llama_params, card))
+    print("[10] speculative decoding over the llama3-8b model cut to its "
+          f"first {SPEC_LAYERS} of {llama.cfg.num_layers} layers (full width, "
+          f"bf16, k={SPEC_K}, virtual clock; {card}):", flush=True)
+    add(check_speculative(torch, *depth_cut(llama, llama_params, SPEC_LAYERS),
+                          card))
     del llama, llama_params
     torch.cuda.empty_cache()
 
@@ -3082,8 +3320,16 @@ def main() -> None:
 
     print(f"[13] training ({card}):", flush=True)
     rows.update(check_backward_kernels(torch))
+    rows.update(check_scan_backward(torch))
     check_small_training(torch)
     add(check_granite_training(torch, card))
+    from repro_torch.configs.falcon_mamba_7b import CONFIG as FALCON
+    from repro_torch.configs.zamba2_2_7b import CONFIG as ZAMBA2
+    add(check_scan_training(torch, card, ZAMBA2, ZAMBA2_STEPS, "13d"))
+    add(check_scan_training(
+        torch, card, dataclasses.replace(FALCON, num_layers=FALCON_LAYERS),
+        FALCON_STEPS, "13e",
+        cut=f" (cut to {FALCON_LAYERS} of its {FALCON.num_layers} layers)"))
 
     kernels = []
     for name, (src, rep) in SOURCES.items():

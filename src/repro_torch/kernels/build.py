@@ -30,8 +30,9 @@ SOURCES = {
     "flash_attention": "flash_attention.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
     "selective_scan": "selective_scan.cu",
+    "selective_scan_bwd": "selective_scan_bwd.cu",
 }
-HEADERS = ("attn_common.cuh",)
+HEADERS = ("attn_common.cuh", "scan_common.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = [ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
          "-Xptxas", "-v"]

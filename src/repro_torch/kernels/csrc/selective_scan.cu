@@ -1,4 +1,5 @@
-// Mamba-1 selective scan, optionally with the final state.
+// Mamba-1 selective scan, optionally with the final state or the chunk
+// states the backward (selective_scan_bwd.cu) recomputes from.
 //
 // Replaces the Pallas TPU kernel of the reference package:
 //   src/repro/kernels/selective_scan.py:selective_scan (_scan_kernel)
@@ -10,7 +11,12 @@
 // decode state (the reference reruns a sequential lax.scan for it,
 // models/ssm.py:_scan_with_state), runs on this kernel as well. Padding past
 // a row's length costs nothing extra: the caller zeroes dt there, so
-// exp(0) = 1 and the state carries through unchanged.
+// exp(0) = 1 and the state carries through unchanged. For training, the
+// instantiation with SAVE also writes h after each of its T-step chunks,
+// (B, ceil(S / T), D, N) f32 — the h_last write generalised, from the same
+// registers; serving launches the one without, and y is the same in both.
+// The step itself (scan_common.cuh: scan_decay, scan_update) is shared with
+// the backward, so its recomputed states equal these bitwise.
 //
 // What bounds it on an H100: the exponentials. Every (b, t, d, n) needs one
 // exp — B*S*D*N of them, 67 M at the engine's 1 x 512 prefill (D=8192,
@@ -58,22 +64,14 @@
 // (B, S, D); B and C may be strided views, so their batch and time strides
 // are arguments and only their last stride must be 1.
 
-#include "attn_common.cuh"
+#include "scan_common.cuh"
 
 using namespace repro_attn;
+using namespace repro_scan;
 
 namespace {
 
-constexpr int CH = 32;         // channels per block, one per lane
-constexpr float LOG2E = 1.4426950408889634f;
-
 enum { STAGE_16 = 0, STAGE_4 = 1, STAGE_ELEM = 2 };
-
-__device__ __forceinline__ float ex2_approx(float v) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
-}
 
 // 4 bytes global -> shared; with src_bytes 0 the destination is zero-filled
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
@@ -166,37 +164,7 @@ __device__ __forceinline__ void to_records(const Tp* s_x, const Tp* s_dt, Tp* r_
   }
 }
 
-// W consecutive 32-bit words from shared memory, in 16-, 8- or 4-byte loads
-template <int W>
-__device__ __forceinline__ void load_words(const void* p, uint32_t (&w)[W]) {
-  if constexpr (W % 4 == 0) {
-#pragma unroll
-    for (int j = 0; j < W / 4; ++j) {
-      const uint4 v = reinterpret_cast<const uint4*>(p)[j];
-      w[4 * j] = v.x;
-      w[4 * j + 1] = v.y;
-      w[4 * j + 2] = v.z;
-      w[4 * j + 3] = v.w;
-    }
-  } else if constexpr (W == 2) {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    w[0] = v.x;
-    w[1] = v.y;
-  } else {
-    w[0] = *reinterpret_cast<const uint32_t*>(p);
-  }
-}
-
-// element k of words holding elements of Tp, widened to f32
-template <typename Tp>
-__device__ __forceinline__ float word_elem(const uint32_t* w, int k) {
-  if constexpr (sizeof(Tp) == 2)
-    return __uint_as_float(k % 2 ? w[k / 2] & 0xffff0000u : w[k / 2] << 16);
-  else
-    return __uint_as_float(w[k]);
-}
-
-template <typename Tp, int N, int NPL, int T>
+template <typename Tp, int N, int NPL, int T, bool SAVE>
 __global__ void __launch_bounds__(CH * N / NPL)
 scan_kernel(const Tp* __restrict__ x,       // (B, S, D) contiguous
             const Tp* __restrict__ dt,      // (B, S, D) contiguous
@@ -206,6 +174,7 @@ scan_kernel(const Tp* __restrict__ x,       // (B, S, D) contiguous
             const float* __restrict__ Dv,   // (D,)
             Tp* __restrict__ y,             // (B, S, D)
             float* __restrict__ h_last,     // (B, D, N) or nullptr
+            float* __restrict__ states,     // (B, ceil(S / T), D, N) with SAVE
             int S, int D, int mode, long long sb_b, long long sb_t, long long sc_b,
             long long sc_t) {
   constexpr int P = N / NPL;          // warps per block
@@ -343,8 +312,7 @@ scan_kernel(const Tp* __restrict__ x,       // (B, S, D) contiguous
           acc[j] = 0.f;
 #pragma unroll
           for (int i = 0; i < NPL; ++i) {
-            const float da = ex2_approx(dv * a[i]);
-            h[i] = fmaf(da, h[i], dx * word_elem<Tp>(cur_g.bc[u], 2 * i));
+            h[i] = scan_update(scan_decay(dv, a[i]), h[i], dx, word_elem<Tp>(cur_g.bc[u], 2 * i));
             acc[j] = fmaf(h[i], word_elem<Tp>(cur_g.bc[u], 2 * i + 1), acc[j]);
           }
         }
@@ -352,6 +320,13 @@ scan_kernel(const Tp* __restrict__ x,       // (B, S, D) contiguous
             make_float4(acc[0], acc[1], acc[2], acc[3]);
       }
       cur_g = nxt;
+    }
+    if constexpr (SAVE) {  // h after chunk c, for the backward's recompute
+      if (live) {
+        float* sp = states + (((long long)b * nch + c) * D + d) * N + g * NPL;
+#pragma unroll
+        for (int i = 0; i < NPL; ++i) sp[i] = h[i];
+      }
     }
     cp_async_wait<0>();  // this thread's copies of chunk c+1 have landed
     __syncthreads();     // every partial of chunk c, every copy of chunk c+1
@@ -410,10 +385,11 @@ scan_kernel(const Tp* __restrict__ x,       // (B, S, D) contiguous
   }
 }
 
-template <typename Tp, int N, int NPL, int T>
+template <typename Tp, int N, int NPL, int T, bool SAVE>
 int launch(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
-           const void* Dv, void* y, void* h_last, int B, int S, int D, long long sb_b,
-           long long sb_t, long long sc_b, long long sc_t, cudaStream_t stream) {
+           const void* Dv, void* y, void* h_last, void* states, int B, int S, int D,
+           long long sb_b, long long sb_t, long long sc_b, long long sc_t,
+           cudaStream_t stream) {
   constexpr int P = N / NPL;
   constexpr int is = int(sizeof(Tp));
   const uintptr_t xdt = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dt);
@@ -424,32 +400,48 @@ int launch(const void* x, const void* dt, const void* A, const void* Bm, const v
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        scan_kernel<Tp, N, NPL, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+        scan_kernel<Tp, N, NPL, T, SAVE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        int(smem));
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
   dim3 grid((D + CH - 1) / CH, B);
-  scan_kernel<Tp, N, NPL, T><<<grid, CH * P, smem, stream>>>(
+  scan_kernel<Tp, N, NPL, T, SAVE><<<grid, CH * P, smem, stream>>>(
       static_cast<const Tp*>(x), static_cast<const Tp*>(dt), static_cast<const float*>(A),
       static_cast<const Tp*>(Bm), static_cast<const Tp*>(Cm), static_cast<const float*>(Dv),
-      static_cast<Tp*>(y), static_cast<float*>(h_last), S, D, mode, sb_b, sb_t, sc_b, sc_t);
+      static_cast<Tp*>(y), static_cast<float*>(h_last), static_cast<float*>(states), S, D,
+      mode, sb_b, sb_t, sc_b, sc_t);
   return (int)cudaGetLastError();
 }
 
+template <typename Tp, int N, int NPL, int T>
+int launch_save(bool save, const void* x, const void* dt, const void* A, const void* Bm,
+                const void* Cm, const void* Dv, void* y, void* h_last, void* states, int B,
+                int S, int D, long long sb_b, long long sb_t, long long sc_b, long long sc_t,
+                cudaStream_t stream) {
+  return save ? launch<Tp, N, NPL, T, true>(x, dt, A, Bm, Cm, Dv, y, h_last, states, B, S,
+                                            D, sb_b, sb_t, sc_b, sc_t, stream)
+              : launch<Tp, N, NPL, T, false>(x, dt, A, Bm, Cm, Dv, y, h_last, states, B, S,
+                                             D, sb_b, sb_t, sc_b, sc_t, stream);
+}
+
 // (N, states per thread) pairs with 1 to 16 warps per block, each with 32
-// or 64 steps per chunk; kernels/cuda.py SCAN_STATES, SCAN_NPL and
-// SCAN_STEPS name the same sets
+// or 64 steps per chunk, with and without the chunk states; kernels/cuda.py
+// SCAN_STATES, SCAN_NPL and SCAN_STEPS name the same sets
 template <typename Tp>
 int dispatch(int N, int npl, int T, const void* x, const void* dt, const void* A,
-             const void* Bm, const void* Cm, const void* Dv, void* y, void* h_last, int B,
-             int S, int D, long long sb_b, long long sb_t, long long sc_b, long long sc_t,
-             cudaStream_t stream) {
-#define SCAN_CASE(NN, PP)                                                                  \
-  if (N == NN && npl == PP)                                                                \
-    return T == 64 ? launch<Tp, NN, PP, 64>(x, dt, A, Bm, Cm, Dv, y, h_last, B, S, D,     \
-                                            sb_b, sb_t, sc_b, sc_t, stream)               \
-                   : launch<Tp, NN, PP, 32>(x, dt, A, Bm, Cm, Dv, y, h_last, B, S, D,     \
-                                            sb_b, sb_t, sc_b, sc_t, stream);
+             const void* Bm, const void* Cm, const void* Dv, void* y, void* h_last,
+             void* states, int B, int S, int D, long long sb_b, long long sb_t, long long sc_b,
+             long long sc_t, cudaStream_t stream) {
+  const bool save = states != nullptr;
+#define SCAN_CASE(NN, PP)                                                                   \
+  if (N == NN && npl == PP)                                                                 \
+    return T == 64 ? launch_save<Tp, NN, PP, 64>(save, x, dt, A, Bm, Cm, Dv, y, h_last,    \
+                                                 states, B, S, D, sb_b, sb_t, sc_b, sc_t,  \
+                                                 stream)                                   \
+                   : launch_save<Tp, NN, PP, 32>(save, x, dt, A, Bm, Cm, Dv, y, h_last,    \
+                                                 states, B, S, D, sb_b, sb_t, sc_b, sc_t,  \
+                                                 stream);
   SCAN_CASE(4, 1) SCAN_CASE(4, 2) SCAN_CASE(4, 4)
   SCAN_CASE(8, 1) SCAN_CASE(8, 2) SCAN_CASE(8, 4) SCAN_CASE(8, 8)
   SCAN_CASE(16, 1) SCAN_CASE(16, 2) SCAN_CASE(16, 4) SCAN_CASE(16, 8)
@@ -464,21 +456,23 @@ int dispatch(int N, int npl, int T, const void* x, const void* dt, const void* A
 extern "C" {
 
 // dtype: DTYPE_F32 or DTYPE_BF16 for x, dt, B, C and y; A and D are f32.
-// h_last may be null. npl: states per thread; steps: time steps staged per
-// chunk, 32 or 64 (both from kernels/cuda.py:scan_plan). Returns
-// cudaGetLastError() after the launch.
+// h_last and states may be null; states, when given, is (B, ceil(S /
+// steps), D, N) f32 and receives h after each chunk (the instantiation
+// with SAVE, for training; serving launches the one without). npl: states
+// per thread; steps: time steps staged per chunk, 32 or 64 (both from
+// kernels/cuda.py:scan_plan). Returns cudaGetLastError() after the launch.
 int selective_scan(int dtype, const void* x, const void* dt, const void* A, const void* Bm,
-                   const void* Cm, const void* Dv, void* y, void* h_last, int B, int S,
-                   int D, int N, int npl, int steps, long long sb_b, long long sb_t,
+                   const void* Cm, const void* Dv, void* y, void* h_last, void* states, int B,
+                   int S, int D, int N, int npl, int steps, long long sb_b, long long sb_t,
                    long long sc_b, long long sc_t, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (steps != 32 && steps != 64) return (int)cudaErrorInvalidValue;
   if (dtype == DTYPE_F32)
-    return dispatch<float>(N, npl, steps, x, dt, A, Bm, Cm, Dv, y, h_last, B, S, D, sb_b,
-                           sb_t, sc_b, sc_t, st);
+    return dispatch<float>(N, npl, steps, x, dt, A, Bm, Cm, Dv, y, h_last, states, B, S, D,
+                           sb_b, sb_t, sc_b, sc_t, st);
   if (dtype == DTYPE_BF16)
-    return dispatch<__nv_bfloat16>(N, npl, steps, x, dt, A, Bm, Cm, Dv, y, h_last, B, S, D,
-                                   sb_b, sb_t, sc_b, sc_t, st);
+    return dispatch<__nv_bfloat16>(N, npl, steps, x, dt, A, Bm, Cm, Dv, y, h_last, states, B,
+                                   S, D, sb_b, sb_t, sc_b, sc_t, st);
   return (int)cudaErrorInvalidValue;
 }
 

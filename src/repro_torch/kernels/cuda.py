@@ -22,10 +22,15 @@ notes are in ``csrc/``.
 log-sum-exp, from which ``flash_attention_bwd`` (two launches: dQ, which
 also writes each row's Delta = rowsum(dO o O) to a buffer, then dK/dV,
 which reads it) computes the gradients; ``kernels/ops.py:FlashAttention``
-ties the two together for autograd. No other wrapper has a backward, so every
-wrapper refuses, in grad mode, inputs that require grad (``_no_grad``):
-a launch would hand autograd an output with no history and the inputs'
-gradients would be lost without an error.
+ties the two together for autograd. Likewise ``selective_scan(...,
+save_states=True)`` also returns the state after each of its chunks and
+its launch plan, from which ``selective_scan_bwd`` (one call: the scan in
+reverse, then a small kernel that sums its per-block partials) computes
+the gradients; ``kernels/ops.py:SelectiveScan`` ties those two together.
+The forward wrappers have no backward of their own, so every one refuses,
+in grad mode, inputs that require grad (``_no_grad``): a launch would hand
+autograd an output with no history and the inputs' gradients would be
+lost without an error. Training goes through ``kernels/ops.py``.
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ launches = {
     "decode_attention": 0,
     "paged_decode_attention": 0,
     "selective_scan": 0,
+    "selective_scan_bwd": 0,
 }
 
 #: flash launches (forward, and each of the two backward kernels) by the
@@ -71,8 +77,9 @@ _SIGS = {
                                  _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "flash_attention_bwd_dq": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    "selective_scan": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                       _I, _I, _L, _L, _L, _L, _P],
+    "selective_scan": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                       _I, _I, _I, _L, _L, _L, _L, _P],
+    "selective_scan_bwd": [_I] + [_P] * 18 + [_I] * 6 + [_L] * 4 + [_P],
 }
 _LIB_OF = {
     "decode_attention": "decode_attention",
@@ -81,6 +88,7 @@ _LIB_OF = {
     "flash_attention_bwd_dkdv": "flash_attention_bwd",
     "flash_attention_bwd_dq": "flash_attention_bwd",
     "selective_scan": "selective_scan",
+    "selective_scan_bwd": "selective_scan_bwd",
 }
 _fns = {}
 
@@ -120,8 +128,8 @@ _NO_BACKWARD = {
     "decode_attention": "decode never trains; call it under torch.no_grad()",
     "paged_decode_attention": "decode never trains; call it under "
                               "torch.no_grad()",
-    "selective_scan": "the selective-scan backward kernel is not ported yet; "
-                      "train ssm and hybrid models on the CPU",
+    "selective_scan": "differentiate through kernels.ops.selective_scan or "
+                      "ops.ssd, whose SelectiveScan runs the backward kernel",
 }
 
 
@@ -479,11 +487,8 @@ def scan_plan(b: int, s: int, d: int, n: int, itemsize: int = 2) -> ScanPlan:
                     SCAN_CHANNELS * warps)
 
 
-def selective_scan(x, dt, A, B, C, D, *, return_state=False):
-    """x, dt (B,S,D) contiguous; A (D,N); B, C (B,S,N) with unit last
-    stride (strided views are fine); D (D,) -> y (B,S,D) in x's dtype, and
-    with return_state also h_last (B,D,N) f32."""
-    name = "selective_scan"
+def _scan_shapes(name, x, dt, A, B, C, D) -> int:
+    """Checks shared by the scan's forward and backward wrappers -> N."""
     bsz, s, d = x.shape
     n = A.shape[1]
     if n not in SCAN_STATES:
@@ -495,22 +500,90 @@ def selective_scan(x, dt, A, B, C, D, *, return_state=False):
                          f"{tuple(dt.shape)} A {tuple(A.shape)} B "
                          f"{tuple(B.shape)} C {tuple(C.shape)} D "
                          f"{tuple(D.shape)}")
-    _no_grad(name, x, dt, A, B, C, D)
     _check(name, x, dt, dtype=x.dtype)
     if not all(t.is_cuda for t in (A, B, C, D)):
         raise ValueError(f"{name}: tensors must lie on a CUDA device")
     if any(t.dtype != x.dtype or t.stride(2) != 1 for t in (B, C)):
         raise ValueError(f"{name}: B and C need x's dtype and a unit last "
                          "stride")
+    return n
+
+
+def selective_scan(x, dt, A, B, C, D, *, return_state=False,
+                   save_states=False):
+    """x, dt (B,S,D) contiguous; A (D,N); B, C (B,S,N) with unit last
+    stride (strided views are fine); D (D,) -> y (B,S,D) in x's dtype, and
+    with return_state also h_last (B,D,N) f32. With save_states (for
+    training) -> (y, states, plan) instead: states (B, ceil(S/T), D, N)
+    f32 holds h after each T-step chunk of the launch plan `plan` (T =
+    plan.steps), which ``selective_scan_bwd`` takes with them; y is bitwise
+    the same as without."""
+    name = "selective_scan"
+    if return_state and save_states:
+        raise ValueError(f"{name}: return_state or save_states, not both "
+                         "(the last chunk state is h_last)")
+    _no_grad(name, x, dt, A, B, C, D)
+    n = _scan_shapes(name, x, dt, A, B, C, D)
+    bsz, s, d = x.shape
     A = A.float().contiguous()
     D = D.float().contiguous()
     plan = scan_plan(bsz, s, d, n, x.element_size())
     y = torch.empty_like(x)
     h = (torch.empty((bsz, d, n), dtype=torch.float32, device=x.device)
          if return_state else None)
+    states = (torch.empty((bsz, _cdiv(s, plan.steps), d, n),
+                          dtype=torch.float32, device=x.device)
+              if save_states else None)
     _run(name, None, _dtype(name, x), x.data_ptr(), dt.data_ptr(), A.data_ptr(),
          B.data_ptr(), C.data_ptr(), D.data_ptr(), y.data_ptr(),
-         h.data_ptr() if h is not None else None, bsz, s, d, n, plan.npl,
-         plan.steps, B.stride(0), B.stride(1), C.stride(0), C.stride(1),
-         _stream())
+         h.data_ptr() if h is not None else None,
+         states.data_ptr() if states is not None else None, bsz, s, d, n,
+         plan.npl, plan.steps, B.stride(0), B.stride(1), C.stride(0),
+         C.stride(1), _stream())
+    if save_states:
+        return y, states, plan
     return (y, h) if return_state else y
+
+
+def selective_scan_bwd(x, dt, A, B, C, D, states, dy, plan: ScanPlan):
+    """Gradients of ``selective_scan`` from the forward's inputs, its chunk
+    `states` and launch `plan` (``save_states=True``) and the output's
+    gradient `dy` (B,S,D) -> (dx, ddt, dA, dB, dC, dD): dx, ddt (B,S,D)
+    and dB, dC (B,S,N, contiguous) in x's dtype, dA (D,N) and dD (D,) f32.
+    One call, two launches on one stream: the scan in reverse, which writes
+    per-block partial sums of dB and dC (over channel blocks) and of dA and
+    dD (over batch rows) into f32 buffers allocated here, then the sums of
+    those partials in a fixed order. Deterministic: no atomics."""
+    name = "selective_scan_bwd"
+    n = _scan_shapes(name, x, dt, A, B, C, D)
+    bsz, s, d = x.shape
+    if dy.shape != x.shape:
+        raise ValueError(f"{name}: dy {tuple(dy.shape)} must be x's shape "
+                         f"{tuple(x.shape)}")
+    want = (bsz, _cdiv(s, plan.steps), d, n)
+    if tuple(states.shape) != want:
+        raise ValueError(f"{name}: states {tuple(states.shape)} must be "
+                         f"{want} for {plan.steps} steps per chunk")
+    _check(name, dy, dtype=x.dtype)
+    _check(name, states, dtype=torch.float32)
+    A = A.float().contiguous()
+    D = D.float().contiguous()
+    ncb = _cdiv(d, SCAN_CHANNELS)
+    dx, ddt = torch.empty_like(x), torch.empty_like(x)
+    dB = torch.empty((bsz, s, n), dtype=x.dtype, device=x.device)
+    dC = torch.empty_like(dB)
+    dA = torch.empty((d, n), dtype=torch.float32, device=x.device)
+    dD = torch.empty((d,), dtype=torch.float32, device=x.device)
+    # the per-block partial sums: dB and dC per channel block, dA and dD
+    # per batch row
+    parts = [torch.empty(shape, dtype=torch.float32, device=x.device)
+             for shape in ((bsz, s, ncb, n), (bsz, s, ncb, n), (bsz, d, n),
+                           (bsz, d))]
+    _run(name, None, _dtype(name, x), x.data_ptr(), dt.data_ptr(),
+         A.data_ptr(), B.data_ptr(), C.data_ptr(), D.data_ptr(),
+         states.data_ptr(), dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+         dB.data_ptr(), dC.data_ptr(), dA.data_ptr(), dD.data_ptr(),
+         *(t.data_ptr() for t in parts),
+         bsz, s, d, n, plan.npl, plan.steps, B.stride(0), B.stride(1),
+         C.stride(0), C.stride(1), _stream())
+    return dx, ddt, dA, dB, dC, dD

@@ -10,11 +10,17 @@ scan kernel also returns the final state, so the serving prefill
 (``selective_scan_with_state``) runs on it and not only the full-sequence
 forward.
 
-Attention is the one kernel with a backward: in grad mode on CUDA it
-runs through ``FlashAttention`` (the hand-written backward kernels); on
-the CPU torch autograd differentiates ``attention_ref``, as the
-reference trains through XLA's autodiff of its ``attention_ref``. Every
-other CUDA kernel refuses, in grad mode, inputs that require grad
+Attention and the scan train on the card: in grad mode on CUDA, with an
+input that requires grad, attention runs through ``FlashAttention`` and
+the scan (Mamba-1's and Mamba-2's alike) through ``SelectiveScan``, each
+a forward kernel that saves what its hand-written backward kernel needs.
+On the CPU torch autograd differentiates the plain versions, as the
+reference trains through XLA's autodiff of its ``attention_ref``,
+``selective_scan_ref`` and ``ssd_ref``. There is no fallback in grad mode
+either: the card never differentiates a plain version. The serving
+prefill's entry points (``selective_scan_with_state``,
+``ssd_with_state``) and decode stay forward-only; their CUDA kernels
+refuse, in grad mode, inputs that require grad
 (``kernels/cuda.py:_no_grad``) rather than drop their gradients.
 
 Mamba-2's recurrence (``ssd``) runs on the same scan kernel: it is the
@@ -32,6 +38,12 @@ import torch
 
 from repro_torch.kernels import cuda as _cuda
 from repro_torch.kernels import ref as _ref
+
+
+def _trains(*tensors) -> bool:
+    """Grad mode is on and an input requires grad: the call must record
+    its backward."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -59,6 +71,32 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+class SelectiveScan(torch.autograd.Function):
+    """The scan kernel with its hand-written backward: the forward also
+    writes h after each of its T-step chunks and saves them with the
+    inputs and its launch plan; the backward launches
+    ``selective_scan_bwd`` with that plan, which recomputes h inside each
+    chunk from those states. A and D come back in their own shapes, so an
+    expanded A (Mamba-2's per-head A, ``ssd_scan_args``) gets its
+    gradient summed by autograd. Under ``torch.utils.checkpoint`` the
+    recomputed forward launches the scan again and saves afresh."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D):
+        y, states, plan = _cuda.selective_scan(x, dt, A, B, C, D,
+                                               save_states=True)
+        ctx.save_for_backward(x, dt, A, B, C, D, states)
+        ctx.plan = plan
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, dt, A, B, C, D, states = ctx.saved_tensors
+        dx, ddt, dA, dB, dC, dD = _cuda.selective_scan_bwd(
+            x, dt, A, B, C, D, states, dy.contiguous(), ctx.plan)
+        return dx, ddt, dA.to(A.dtype), dB, dC, dD.to(D.dtype)
+
+
 def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
               lengths=None, q_offset=None, sm_scale: Optional[float] = None):
     """Prefill/train attention. q (B,Sq,H,hd), k/v (B,Sk,KV,hd). On CUDA
@@ -66,8 +104,7 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     ``FlashAttention`` (forward and backward kernels); otherwise the
     forward kernel alone, as serving does."""
     if q.is_cuda:
-        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                        or v.requires_grad):
+        if _trains(q, k, v):
             if q_offset is not None:
                 raise ValueError("attention: q_offset has no use in "
                                  "training and the backward kernels do not "
@@ -107,11 +144,21 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
         sm_scale=sm_scale)
 
 
+def _scan(x, dt, A, B, C, D):
+    """The scan kernel on CUDA tensors: through ``SelectiveScan`` when the
+    call trains, else the forward alone, as serving does."""
+    if _trains(x, dt, A, B, C, D):
+        return SelectiveScan.apply(x, dt, A, B, C, D)
+    return _cuda.selective_scan(x, dt, A, B, C, D)
+
+
 def selective_scan(x, dt, A, B, C, D):
     """Mamba-1 selective scan. x, dt (B,S,D); A (D,N); B, C (B,S,N);
-    D (D,) -> y (B,S,D) in x's dtype."""
+    D (D,) -> y (B,S,D) in x's dtype. On CUDA in grad mode with an input
+    that requires grad it runs through ``SelectiveScan`` (forward and
+    backward kernels)."""
     if x.is_cuda:
-        return _cuda.selective_scan(x, dt, A, B, C, D)
+        return _scan(x, dt, A, B, C, D)
     return _ref.selective_scan_ref(x, dt, A, B, C, D)
 
 
@@ -145,10 +192,11 @@ def ssd_scan_args(x, dt, A, B, C, D):
 
 def ssd(x, dt, A, B, C, D):
     """Mamba-2 recurrence. x (B,S,NH,HD); dt (B,S,NH); A (NH,); B, C
-    (B,S,N); D (NH,) -> y (B,S,NH,HD) in x's dtype."""
+    (B,S,N); D (NH,) -> y (B,S,NH,HD) in x's dtype. Trains on CUDA as
+    ``selective_scan`` does: autograd carries the gradients of the mapped
+    arguments back through ``ssd_scan_args`` to each head's dt, A and D."""
     if x.is_cuda:
-        return _cuda.selective_scan(*ssd_scan_args(x, dt, A, B, C, D)
-                                    ).view(x.shape)
+        return _scan(*ssd_scan_args(x, dt, A, B, C, D)).view(x.shape)
     return _ref.ssd_ref(x, dt, A, B, C, D)
 
 

@@ -5,8 +5,9 @@ The semantic ground truth, line for line with ``src/repro/kernels/ref.py``:
 the CPU path of every dispatch in ``kernels/ops.py`` and the yardstick the
 CUDA kernels are held against on the card. ``attention_lse_ref`` and
 ``attention_bwd_ref`` are the plain versions of the flash kernel's `lse`
-output and of the backward kernels; the CPU path differentiates
-``attention_ref`` with torch autograd instead, as the reference does with
+output and of the backward kernels, and ``selective_scan_bwd_ref`` that of
+the scan's backward kernel; the CPU path differentiates ``attention_ref``
+and the scans with torch autograd instead, as the reference does with
 XLA's. Fully masked rows follow this
 reference (uniform average over the masked keys); the CUDA kernels write
 zeros there, as the Pallas kernels do — the serving path never produces
@@ -202,6 +203,43 @@ def selective_scan_ref(x, dt, A, B, C, D) -> torch.Tensor:
     """Mamba-1 selective scan, sequential oracle. Returns y (B, S, D) in
     x's dtype (the reference's ``selective_scan_ref``)."""
     return selective_scan_with_state_ref(x, dt, A, B, C, D)[0]
+
+
+def selective_scan_bwd_ref(x, dt, A, B, C, D, dy):
+    """Gradients of the selective scan, the reverse recurrence written
+    out in f32 (not autograd): with a_t = exp(dt_t A) and u_t = dt_t x_t
+    per (b, d, n), the adjoint g_t = C_t dy_t + a_{t+1} g_{t+1} gives
+    dx_t = dt_t sum_n g_t B_t + D dy_t, ddt_t = sum_n g_t (A a_t h_{t-1}
+    + x_t B_t), dB_t = sum_d g_t u_t, dC_t = sum_d dy_t h_t,
+    dA = sum_{b,t} g_t dt_t a_t h_{t-1} and dD = sum_{b,t} dy_t x_t.
+    Returns (dx, ddt, dA, dB, dC, dD): dx, ddt, dB and dC in their inputs'
+    dtypes, dA and dD f32 — the plain version of the backward kernel
+    (csrc/selective_scan_bwd.cu)."""
+    bsz, s, d = x.shape
+    n = A.shape[1]
+    A = A.float()
+    xf, dtf, Bf, Cf, dyf = (t.float() for t in (x, dt, B, C, dy))
+    hs = [torch.zeros((bsz, d, n), dtype=torch.float32, device=x.device)]
+    for t in range(s):                       # h_t, from the zero state
+        hs.append(torch.exp(dtf[:, t, :, None] * A[None]) * hs[-1]
+                  + (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :])
+    dx, ddt = torch.empty_like(xf), torch.empty_like(xf)
+    dB, dC = torch.empty_like(Bf), torch.empty_like(Cf)
+    dA = torch.zeros_like(A)
+    carry = torch.zeros_like(hs[0])          # a_{t+1} g_{t+1}
+    for t in reversed(range(s)):
+        a = torch.exp(dtf[:, t, :, None] * A[None])
+        g = Cf[:, t, None, :] * dyf[:, t, :, None] + carry
+        s1 = (g * Bf[:, t, None, :]).sum(-1)
+        q = g * a * hs[t]
+        dx[:, t] = dtf[:, t] * s1 + D.float() * dyf[:, t]
+        ddt[:, t] = (q * A[None]).sum(-1) + xf[:, t] * s1
+        dA += (q * dtf[:, t, :, None]).sum(0)
+        dB[:, t] = (g * (dtf[:, t] * xf[:, t])[..., None]).sum(1)
+        dC[:, t] = (dyf[:, t, :, None] * hs[t + 1]).sum(1)
+        carry = a * g
+    return (dx.to(x.dtype), ddt.to(dt.dtype), dA, dB.to(B.dtype),
+            dC.to(C.dtype), (dyf * xf).sum((0, 1)))
 
 
 def selective_scan_step_ref(

@@ -7,9 +7,9 @@
 
 f32 params and AdamW moments, per-layer remat, batches from the
 synthetic corpus (``training.data.packed_batches``), random weights from
-`--seed`. On CUDA the attention's forward and backward run on the
-hand-written kernels; ssm and hybrid models need the selective-scan
-backward, which is not ported yet, and raise there.
+`--seed`. On CUDA the attention's and the selective scan's forward and
+backward run on the hand-written kernels, so every kind trains there
+(``--arch zamba2-2.7b --smoke`` included).
 """
 from __future__ import annotations
 

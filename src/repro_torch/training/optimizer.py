@@ -87,13 +87,19 @@ def adamw_update(cfg: OptimizerConfig, params, grads, state: OptState):
     bc1 = 1 - b1 ** stepf
     bc2 = 1 - b2 ** stepf
     lr = lr_schedule(cfg, stepf)
+    # the reference's expressions, evaluated in the same order, but in
+    # place where a temporary would die at once: at most two temporaries of
+    # a leaf's size are alive (a stacked full-width leaf is several GB)
     for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state.mu),
                           leaves(state.nu)):
         g = g.float() * scale
         m.mul_(b1).add_((1 - b1) * g)
-        v.mul_(b2).add_((1 - b2) * g * g)
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+        v.mul_(b2).add_(((1 - b2) * g).mul_(g))
+        del g
+        denom = (v / bc2).sqrt_().add_(cfg.eps)
+        delta = (m / bc1).div_(denom)
+        del denom
         if p.ndim >= 2:     # decoupled weight decay on matrices only
-            delta = delta + cfg.weight_decay * p.float()
-        p.copy_((p.float() - lr * delta).to(p.dtype))
+            delta.add_(cfg.weight_decay * p.float())
+        p.copy_((p.float() - delta.mul_(lr)).to(p.dtype))
     return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -4,10 +4,9 @@ per-layer rematerialisation — ``src/repro/training/train.py``.
 The reference jits ``value_and_grad`` of ``Model.loss``; here torch
 autograd differentiates the same loss eagerly: on the CPU through the
 plain attention and scan, on CUDA through the flash kernel's
-``FlashAttention`` (hand-written backward kernels). Kernels without a
-backward (the selective scan, decode) raise in grad mode on CUDA, so
-ssm and hybrid models train on the CPU until the scan's backward is
-ported.
+``FlashAttention`` and the selective scan's ``SelectiveScan``
+(hand-written backward kernels, ``kernels/ops.py``), so every kind
+trains on the card. Decode has no backward and raises in grad mode.
 """
 from __future__ import annotations
 

@@ -29,7 +29,14 @@ edges too, bitwise equal over two launches, on the body their dtype
 selects (bf16 tensor cores, f32 CUDA cores); the autograd Function
 through ``torch.utils.checkpoint`` against torch autograd of the plain
 attention on the CPU, and every kernel without a backward must raise in
-grad mode rather than drop gradients.
+grad mode rather than drop gradients. The scan's backward kernel is held
+against ``selective_scan_bwd_ref`` at the same tolerances, for every
+launch plan the forward can take at N 16 and 64, at odd D, S past a
+chunk, strided B and C and zeroed dt, bitwise equal over two launches;
+the forward's y is bitwise the same with and without its chunk states,
+and the last chunk state is its final state. ``ops.SelectiveScan`` (through
+``ops.selective_scan`` and ``ops.ssd``) under ``torch.utils.checkpoint``
+is held against torch autograd of the plain scans on the CPU.
 """
 import numpy as np
 import pytest
@@ -447,6 +454,135 @@ def test_selective_scan_kernel_refuses_bad_inputs(dev):
                              dt, A, B, C, D)
     with pytest.raises(ValueError, match="dtype"):
         tcuda.selective_scan(x, dt, A, B.to(torch.bfloat16), C, D)
+
+
+SCAN_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _check_scan_bwd(args, plan_states, dtype, seed=22):
+    """The backward kernel on `args` with the forward's (states, plan)
+    against selective_scan_bwd_ref, each gradient relative to its max
+    magnitude; two launches bitwise equal. Returns the launch's grads."""
+    states, plan = plan_states
+    g = torch.Generator().manual_seed(seed)
+    dy = torch.randn(args[0].shape, generator=g).to(args[0])
+    n0 = tcuda.launches["selective_scan_bwd"]
+    got = tcuda.selective_scan_bwd(*args, states, dy, plan)
+    again = tcuda.selective_scan_bwd(*args, states, dy, plan)
+    assert tcuda.launches["selective_scan_bwd"] == n0 + 2
+    torch.cuda.synchronize()
+    want = tref.selective_scan_bwd_ref(*args, dy)
+    for name, a, b_, w in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got,
+                              again, want):
+        assert torch.equal(a, b_), f"{name}: two launches differ"
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        assert torch.isfinite(a).all(), name
+        scale = max(w.float().abs().max().item(), 1e-6)
+        err = (a.float() - w.float()).abs().max().item()
+        assert err <= SCAN_BWD_TOL[dtype] * scale, (name, err, scale)
+    assert got[3].is_contiguous() and got[4].is_contiguous()
+    return got
+
+
+def _forward_with_states(args):
+    """The forward with its chunk states: y bitwise the serving launch's,
+    the last chunk state bitwise its h_last. Returns (states, plan)."""
+    y0, h = tcuda.selective_scan(*args, return_state=True)
+    y, states, plan = tcuda.selective_scan(*args, save_states=True)
+    b, s, d = args[0].shape
+    assert states.shape == (b, -(-s // plan.steps), d, args[2].shape[1])
+    assert torch.equal(y, y0)
+    assert torch.equal(states[:, -1], h)
+    return states, plan
+
+
+@pytest.mark.parametrize("n,npl,steps", [
+    (n, npl, steps) for n in (16, 64) for npl in tcuda.scan_npl_options(n)
+    for steps in tcuda.SCAN_STEPS])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_bwd_every_plan(dev, monkeypatch, n, npl, steps,
+                                       dtype):
+    """Every (states per thread, steps per chunk) plan at N 16 and 64,
+    forced through `scan_plan` as for the forward, on a ragged shape: the
+    backward runs the forward's plan over its chunk states."""
+    b, s, d = 2, 70, 72
+    monkeypatch.setattr(tcuda, "scan_plan", lambda *_: tcuda.ScanPlan(
+        npl, steps, (-(-d // 32), b), 32 * n // npl))
+    args = _scan_args(b, s, d, n, dtype, dev)
+    _check_scan_bwd(args, _forward_with_states(args), dtype)
+
+
+SCAN_BWD_CASES = [
+    # (b, s, d, n): odd D (a part-filled last block), S past a chunk and
+    # short of one, every N the kernel takes; falcon-mamba's d_inner
+    (2, 77, 45, 16), (1, 33, 35, 8), (3, 40, 96, 4), (2, 19, 40, 64),
+    (1, 20, 48, 32), (2, 130, 8192, 16),
+]
+
+
+@pytest.mark.parametrize("case", SCAN_BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_bwd_kernel(dev, case, dtype):
+    """The plan's own launch: strided B and C (gradients contiguous),
+    ragged zeroed dt, y unchanged by the chunk states, two backward
+    launches bitwise equal."""
+    args = _scan_args(*case, dtype, dev)
+    assert not args[3].is_contiguous()
+    _check_scan_bwd(args, _forward_with_states(args), dtype)
+
+
+def test_selective_scan_bwd_refuses_mismatched_states(dev):
+    args = _scan_args(1, 40, 32, 16, torch.float32, dev)
+    y, states, plan = tcuda.selective_scan(*args, save_states=True)
+    n0 = tcuda.launches["selective_scan_bwd"]
+    with pytest.raises(ValueError, match="states"):
+        tcuda.selective_scan_bwd(*args, torch.cat([states, states], 1),
+                                 torch.ones_like(y), plan)
+    with pytest.raises(ValueError, match="not both"):
+        tcuda.selective_scan(*args, return_state=True, save_states=True)
+    assert tcuda.launches["selective_scan_bwd"] == n0
+
+
+def test_scan_autograd_under_checkpoint(dev):
+    """A Mamba-1 scan (ops.selective_scan) and a Mamba-2 one (ops.ssd)
+    between projections, under non-reentrant torch.utils.checkpoint, on
+    the card (SelectiveScan) against torch autograd of the plain scans on
+    the CPU: forward, recomputed forward and backward launches counted."""
+    from repro_torch.kernels import ops
+    b, s, dm, di, n, nh = 2, 70, 32, 64, 16, 4
+    g = torch.Generator().manual_seed(5)
+    x0 = torch.randn((b, s, dm), generator=g)
+    w = torch.randn((dm, 2 * di + 2 * n + nh), generator=g) * dm ** -0.5
+    a_log = torch.randn((di, n), generator=g) * 0.5
+    a_h = torch.randn((nh,), generator=g) * 0.5
+    d_skip = torch.randn((di,), generator=g)
+
+    def run(device):
+        leaves = [t.to(device).requires_grad_()
+                  for t in (x0, w, a_log, a_h, d_skip)]
+
+        def block(xx, ww, al, ah, dd):
+            p = xx @ ww
+            xs, dt = p[..., :di].contiguous(), p[..., di:2 * di]
+            bm, cm = p[..., 2 * di:2 * di + n], p[..., 2 * di + n:-nh]
+            dt = torch.nn.functional.softplus(dt).contiguous()
+            y1 = ops.selective_scan(xs, dt, -torch.exp(al), bm, cm, dd)
+            y2 = ops.ssd(y1.view(b, s, nh, di // nh),
+                         torch.nn.functional.softplus(p[..., -nh:]),
+                         -torch.exp(ah), bm, cm, dd[:nh])
+            return (y2.float() ** 2).mean()
+
+        loss = torch.utils.checkpoint.checkpoint(block, *leaves,
+                                                 use_reentrant=False)
+        return torch.autograd.grad(loss, leaves)
+
+    tcuda.reset_launches()
+    got = run(dev)
+    assert tcuda.launches["selective_scan"] == 4      # 2 + 2 recomputed
+    assert tcuda.launches["selective_scan_bwd"] == 2
+    for a, e in zip(got, run("cpu")):
+        scale = max(e.abs().max().item(), 1e-6)
+        assert (a.cpu() - e).abs().max().item() <= 1e-4 * scale
 
 
 def _ssd_args(b, s, nh, hd, n, dtype, dev, seed=21):
@@ -973,8 +1109,12 @@ def test_kernels_without_backward_refuse_grad_mode(dev):
                                    lengths)
     x, dt, A, B, C, D = _scan_args(1, 32, 64, 16, torch.float32, dev)
     x.requires_grad_()
-    with pytest.raises(RuntimeError, match="selective-scan backward"):
-        ops.selective_scan(x, dt, A, B, C, D)
+    # the prefill's entry points serve only; training takes ops.selective_scan
+    with pytest.raises(RuntimeError, match="ops.selective_scan or ops.ssd"):
+        ops.selective_scan_with_state(x, dt, A, B, C, D)
+    with pytest.raises(RuntimeError, match="ops.selective_scan or ops.ssd"):
+        ops.ssd_with_state(x.view(1, 32, 2, 32), dt[..., :2], A[::32, 0],
+                           B, C, D[:2])
     with pytest.raises(RuntimeError, match="ops.attention"):
         tcuda.flash_attention(_rand(42, (1, 8, 4, 64), torch.float32,
                                     dev).requires_grad_(),

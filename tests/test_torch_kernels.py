@@ -272,7 +272,7 @@ def test_cuda_wrappers_refuse_grad_mode_before_anything_else():
         tcuda.flash_attention(torch.zeros(1, 8, 4, 32, requires_grad=True),
                               k, k)
     x = torch.zeros(1, 8, 32, requires_grad=True)
-    with pytest.raises(RuntimeError, match="selective-scan backward"):
+    with pytest.raises(RuntimeError, match="ops.selective_scan or ops.ssd"):
         tcuda.selective_scan(x, x.detach(), torch.zeros(32, 16),
                              torch.zeros(1, 8, 16), torch.zeros(1, 8, 16),
                              torch.zeros(32))
