@@ -190,17 +190,22 @@ order:
    and the backward kernel (``csrc/selective_scan_bwd.cu``) against
    ``selective_scan_bwd_ref`` in f32 (1e-4) and bf16 (2e-2, relative to
    each gradient's max magnitude) at falcon-mamba's Mamba-1 (8 x 512, D
-   8192, N 16), zamba2's Mamba-2 through ``ops.ssd_scan_args`` (8 x 512,
-   NH 80, HD 64, N 64) and a ragged-dt Mamba-1 case, two launches
-   bitwise equal, each timed with L2 flushed beside its bound (19 f32
-   FLOPs and at least one exp per (b, t, d, n), against bytes) and the
-   plain version; the falcon-mamba rows of both dtypes go into the
-   kernels' line; (13b) smoke-size training, f32 with TF32 off, on the
+   8192, N 16) and a ragged-dt Mamba-1 case on the Mamba-1 body, and
+   zamba2's Mamba-2 as ``ops.ssd`` trains it (A per channel through
+   ``ops.ssd_channel_args``, 8 x 512, NH 80, HD 64, N 64) on the Mamba-2
+   body, two launches bitwise equal and counted by body, each timed with
+   L2 flushed beside its bound (Mamba-1: 19 f32 FLOPs and one exp per
+   (b, t, d, n); Mamba-2, the function's own: 14 f32 FLOPs per (b, t, d,
+   n) and one exp per (b, t, head); against bytes), the plain version
+   and the dB / dC partial bytes; the 8 x 512 rows of both bodies and
+   dtypes go into the kernels' line (``body`` and ``body_launches`` keys);
+   (13b) smoke-size training, f32 with TF32 off, on the
    card against the CPU: the loss and every gradient of one remat loss
    and one train step (grad norm, params after AdamW) for llama3-8b,
    granite-3-2b, qwen2-moe, seamless-m4t-medium, pixtral-12b,
    falcon-mamba-7b and zamba2-2.7b, the backward launches one per
-   attention call and per Mamba layer, the scan forward two (remat); 50
+   attention call and per Mamba layer (falcon-mamba's on the Mamba-1
+   body, zamba2's on the Mamba-2 body), the scan forward two (remat); 50
    llama3 steps must lower the loss by 1.0;
    (13c) full-width, full-depth granite-3-2b, f32 params and AdamW,
    remat, 8 x 512 from ``packed_batches``, 10 steps through
@@ -214,7 +219,8 @@ order:
    to its first 24 of 64 layers (3.06 B params), each f32 params and
    AdamW, remat, 8 x 512 from ``packed_batches``, 5 and 3 steps: finite
    loss and grad norm every step, per step the scan 2 x the Mamba layers
-   (90; 48), its backward once per Mamba layer (45; 24), flash 18 and dQ
+   (90; 48), its backward once per Mamba layer (45 on the Mamba-2 body;
+   24 on the Mamba-1 body), flash 18 and dQ
    = dK/dV = 9 (zamba2), the wall per step, tokens/s, peak memory and a
    profiled step (busy time, idle share, the scan backward's share).
 
@@ -735,7 +741,7 @@ def check_ssd(torch, flush, gen):
                      "with its plain version")
         b, s, nh, hd = args[0].shape
         n = args[3].shape[-1]
-        mapped = ops.ssd_scan_args(*args)
+        mapped = ops.ssd_channel_args(*args)
         ms = time_ms(torch, lambda: ops.ssd_with_state(*args), flush)
         k_ms = time_ms(torch, lambda: kc.selective_scan(
             *mapped, return_state=True), flush)
@@ -2693,48 +2699,79 @@ def check_backward_kernels(torch):
 
 
 # the scan backward's rows in 13a: (label, kind, lengths); Mamba-1 at
-# falcon-mamba-7b's d_inner 8192, N 16 (dt_rank 256), Mamba-2 at
-# zamba2-2.7b's NH 80, HD 64, N 64 through ops.ssd_scan_args
+# falcon-mamba-7b's d_inner 8192, N 16 (dt_rank 256) on the Mamba-1 body;
+# Mamba-2 at zamba2-2.7b's NH 80, HD 64, N 64 as ops.ssd trains it: A per
+# channel (ops.ssd_channel_args), on the Mamba-2 body
 SCAN_BWD_CASES = (
     ("falcon-mamba Mamba-1: 8 x 512, D 8192, N 16", "mamba1", [512] * 8),
-    ("zamba2 Mamba-2 via ssd_scan_args: 8 x 512, NH 80, HD 64, N 64",
+    ("zamba2 Mamba-2 via ssd_channel_args: 8 x 512, NH 80, HD 64, N 64",
      "mamba2", [512] * 8),
     ("falcon-mamba Mamba-1, ragged dt: 4 x 512, lengths 512/389/200/64",
      "mamba1", [512, 389, 200, 64]),
 )
-# f32 operations per (b, t, d, n) the backward needs: recompute h_t (the
-# decay's product, the input's product, the FMA: 4), the adjoint (a
-# product and an FMA: 3), sum_n g B (2), g a h_{t-1} (2) and its sums into
-# ddt and dA (4), g u and dy h into dB and dC (4); and per (b, t, d): u,
-# dx, ddt's x term and dD (7)
+# f32 operations per (b, t, d, n) the Mamba-1 backward needs: recompute
+# h_t (the decay's product, the input's product, the FMA: 4), the adjoint
+# (a product and an FMA: 3), sum_n g B (2), g a h_{t-1} (2) and its sums
+# into ddt and dA (4), g u and dy h into dB and dC (4); and per (b, t, d):
+# u, dx, ddt's x term and dD (7)
 SCAN_BWD_FLOPS = (19, 7)
+# and the Mamba-2 function's, with one decay per (b, t, head) and A folded
+# out of the sums over n: per (b, t, d, n) recompute h_t (the input's
+# product and the FMA: 3), the adjoint (an FMA and the carry's product: 3),
+# sum_n g B (2), sum_n g h_{t-1} (2), g u and dy h into dB and dC (4); per
+# (b, t, d) u, dx, ddt's x term, A a_t r (2), dA's sum and dD (11)
+SCAN_BWD_FLOPS_M2 = (14, 11)
 
 
-def scan_bwd_bound(torch, b, s, d, n, isz):
-    """The scan backward's bound -> (ms, by, detail): x, dt, dy, B, C, A
-    and D read once, dx, ddt, dB, dC, dA and dD written once, against
-    SCAN_BWD_FLOPS over the f32 peak and one exp per (b, t, d, n)."""
+def scan_bwd_bound(torch, b, s, d, n, isz, heads=None):
+    """The scan backward's bound -> (ms, by, detail). Mamba-1 (`heads`
+    None): x, dt, dy, B, C, A and D read once, dx, ddt, dB, dC, dA and dD
+    written once, against SCAN_BWD_FLOPS over the f32 peak and one exp per
+    (b, t, d, n). Mamba-2 with `heads` heads over the d channels, the
+    function's own work: x, dy, dx per channel, dt and ddt per head, B,
+    C, dB, dC, and A, D, dA, dD per head, against SCAN_BWD_FLOPS_M2 and
+    one exp per (b, t, head)."""
     el = b * s * d
-    nbytes = (5 * el * isz + 4 * b * s * n * isz + 2 * (d * n + d) * 4)
-    flops = SCAN_BWD_FLOPS[0] * el * n + SCAN_BWD_FLOPS[1] * el
+    if heads is None:
+        nbytes = 5 * el * isz + 4 * b * s * n * isz + 2 * (d * n + d) * 4
+        per, n_exp = SCAN_BWD_FLOPS, el * n
+    else:
+        nbytes = (3 * el * isz + 2 * b * s * heads * isz
+                  + 4 * b * s * n * isz + 4 * heads * 4)
+        per, n_exp = SCAN_BWD_FLOPS_M2, b * s * heads
+    flops = per[0] * el * n + per[1] * el
     rate = exp_rate(torch)
-    b_ms, b_by = bound_ms(nbytes, (flops, F32_FLOPS), (el * n, rate))
+    b_ms, b_by = bound_ms(nbytes, (flops, F32_FLOPS), (n_exp, rate))
     return b_ms, b_by, (
         f"bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, f32 FLOPs "
-        f"{flops / F32_FLOPS * 1e3:.4f} ms, {el * n / 1e6:.1f} M exp "
-        f"{el * n / rate * 1e3:.4f} ms")
+        f"{flops / F32_FLOPS * 1e3:.4f} ms ({per[0]} per (b, t, d, n)), "
+        f"{n_exp / 1e6:.1f} M exp {n_exp / rate * 1e3:.4f} ms")
+
+
+def scan_bwd_bodies(cfg) -> dict:
+    """Scan-backward launches of one train step by body: one per Mamba
+    layer, on the Mamba-1 body (ssm version 1, ops.selective_scan) or the
+    Mamba-2 body (version 2, ops.ssd)."""
+    n = len(cfg.ssm_layer_ids())
+    v = cfg.ssm.version if n else 1
+    return {"selective_scan_bwd/mamba1": n if v == 1 else 0,
+            "selective_scan_bwd/mamba2": n if v == 2 else 0}
 
 
 def check_scan_backward(torch):
     """13a, the scan: the forward's chunk states and the backward kernel
     (csrc/selective_scan_bwd.cu) against selective_scan_bwd_ref at
     falcon-mamba's and zamba2's training shapes (SCAN_BWD_CASES), f32
-    (1e-4) and bf16 (2e-2), each gradient relative to its max magnitude;
-    y must be bitwise the same with and without the chunk states, two
-    backward launches bitwise equal. Timed with L2 flushed beside its
-    bound and the plain version (no one PyTorch call computes it).
-    Returns the falcon-mamba 8 x 512 rows: f32 under the kernel's name,
-    bf16 under "selective_scan_bwd/bfloat16"."""
+    (1e-4) and bf16 (2e-2), each gradient relative to its max magnitude,
+    each on its body (Mamba-1; zamba2 on the Mamba-2 body, A per channel,
+    as ops.ssd trains); y must be bitwise the same with and without the
+    chunk states, two backward launches bitwise equal. Timed with L2
+    flushed beside its bound (the Mamba-2 function's own for zamba2) and
+    the plain version (no one PyTorch call computes it); the dB / dC
+    partial bytes printed beside each row. Returns the 8 x 512 rows:
+    falcon-mamba's f32 under the kernel's name, bf16 under
+    "selective_scan_bwd/bfloat16", zamba2's under
+    "selective_scan_bwd/mamba2[/bfloat16]"."""
     from repro_torch.kernels import cuda as kc
     from repro_torch.kernels import ops
     from repro_torch.kernels import ref
@@ -2746,19 +2783,26 @@ def check_scan_backward(torch):
         name = str(dt).split(".")[1]
         tol = BWD_TOL[name]
         for label, kind, lengths in SCAN_BWD_CASES:
+            heads = None
             if kind == "mamba1":
                 args = scan_inputs(torch, gen, lengths, dt)
             else:
-                args = ops.ssd_scan_args(*ssd_inputs(torch, gen, lengths, dt))
+                raw = ssd_inputs(torch, gen, lengths, dt)
+                heads = raw[2].shape[0]
+                args = ops.ssd_channel_args(*raw)
             b, s, d = args[0].shape
-            n = args[2].shape[1]
+            n = args[3].shape[-1]
             y0 = kc.selective_scan(*args)
             y, states, plan = kc.selective_scan(*args, save_states=True)
             if not torch.equal(y, y0):
                 fail(f"13a {label} {name}: y differs with the chunk states")
             dy = torch.randn((b, s, d), generator=gen).to("cuda", dt)
+            v0 = kc.variant_launches[f"selective_scan_bwd/{kind}"]
             grads = kc.selective_scan_bwd(*args, states, dy, plan)
             again = kc.selective_scan_bwd(*args, states, dy, plan)
+            if kc.variant_launches[f"selective_scan_bwd/{kind}"] != v0 + 2:
+                fail(f"13a {label} {name}: the backward did not run its "
+                     f"{kind} body")
             if not all(torch.equal(a, g) for a, g in zip(again, grads)):
                 fail(f"13a {label} {name}: two launches of the scan "
                      "backward differ (it must be deterministic)")
@@ -2779,23 +2823,32 @@ def check_scan_backward(torch):
             plain_ms = time_ms(torch, lambda: ref.selective_scan_bwd_ref(
                 *args, dy), flush, iters=3, warmup=1)
             b_ms, b_by, detail = scan_bwd_bound(torch, b, s, d, n,
-                                                args[0].element_size())
-            print(f"  13a scan {label}, {name}: max|err| {max(diffs):.3e}, "
-                  f"max|err|/max|grad| {max(rels):.3e} (tol {tol}; dx, ddt, "
-                  f"dA, dB, dC, dD: {', '.join('%.1e' % r for r in rels)}); "
-                  f"plan {plan.npl} states per thread, {plan.steps} steps "
-                  f"per chunk; backward {ms:.4f} ms, bound {b_ms:.4f} ms "
+                                                args[0].element_size(), heads)
+            ncl = -(-d // kc.SCAN_CHANNELS) // kc.scan_bwd_cluster(d)
+            part_mb = 2 * b * s * ncl * n * 4 / 1e6
+            print(f"  13a scan {label}, {name}, {kind} body: max|err| "
+                  f"{max(diffs):.3e}, max|err|/max|grad| {max(rels):.3e} "
+                  f"(tol {tol}; dx, ddt, dA, dB, dC, dD: "
+                  f"{', '.join('%.1e' % r for r in rels)}); forward plan "
+                  f"{plan.npl} states per thread, {plan.steps} steps per "
+                  f"chunk; backward {ms:.4f} ms, bound {b_ms:.4f} ms "
                   f"({b_by}: {detail}; kernel/bound {ms / b_ms:.2f}), plain "
-                  f"{plain_ms:.4f} ms, library none; y bitwise unchanged by "
-                  f"the chunk states ({tuple(states.shape)} f32, "
+                  f"{plain_ms:.4f} ms, library none; dB/dC partials "
+                  f"{part_mb:.1f} MB f32 ({kc.scan_bwd_cluster(d)} channel "
+                  f"blocks a cluster), written once and read once; y "
+                  f"bitwise unchanged by the chunk states "
+                  f"({tuple(states.shape)} f32, "
                   f"{states.numel() * 4 / 1e6:.1f} MB); two launches bitwise "
                   f"equal", flush=True)
-            if label.startswith("falcon-mamba Mamba-1: 8"):
-                rows["selective_scan_bwd" if dt == torch.float32 else
-                     f"selective_scan_bwd/{name}"] = dict(
-                    dtype=name, max_abs_err=max(diffs),
+            if lengths == [512] * 8:
+                key = "selective_scan_bwd" + (
+                    "/mamba2" if kind == "mamba2" else "") + (
+                    "" if dt == torch.float32 else f"/{name}")
+                rows[key] = dict(
+                    dtype=name, body=kind, max_abs_err=max(diffs),
                     max_rel_err=max(rels), ms=ms, plain_ms=plain_ms,
-                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                    partial_mb=part_mb)
             del args, dy, grads, states
             torch.cuda.empty_cache()
     del flush
@@ -2862,11 +2915,12 @@ def check_small_training(torch):
         kc.reset_launches()
         loss_g, grads_g = value_and_grad(models["cuda"], params["cuda"],
                                          batch["cuda"])
-        n = dict(kc.launches)
+        n = dict(kc.launches, **kc.variant_launches)
         want = {"flash_attention": 2 * n_attn,
                 "flash_attention_bwd_dq": n_attn,
                 "flash_attention_bwd_dkdv": n_attn,
-                "selective_scan": 2 * n_scan, "selective_scan_bwd": n_scan}
+                "selective_scan": 2 * n_scan, "selective_scan_bwd": n_scan,
+                **scan_bwd_bodies(cfg)}
         if any(n[k] != v for k, v in want.items()) or n["decode_attention"]:
             fail(f"13b {arch}: launches {n}, expected {want}")
         loss_err = abs(loss_g.item() - loss_c.item()) / abs(loss_c.item())
@@ -2891,7 +2945,9 @@ def check_small_training(torch):
               f"attention calls (remat), dQ {n['flash_attention_bwd_dq']}, "
               f"dK/dV {n['flash_attention_bwd_dkdv']}; scan "
               f"{n['selective_scan']} = 2 x {n_scan} Mamba layers, scan "
-              f"backward {n['selective_scan_bwd']}", flush=True)
+              f"backward {n['selective_scan_bwd']} (Mamba-1 body "
+              f"{n['selective_scan_bwd/mamba1']}, Mamba-2 body "
+              f"{n['selective_scan_bwd/mamba2']})", flush=True)
         if not (loss_err <= 1e-5 and grad_err <= 2e-5 and gn_err <= 1e-5
                 and p_err <= 2e-5):
             fail(f"13b {arch}: the card's train step disagrees with the CPU's")
@@ -3014,8 +3070,10 @@ def check_scan_training(torch, card, cfg, steps, label, cut=""):
     packed_batches, `steps` steps through build_train_step, the launch
     counters set to 0 before each step and read after: the scan 2 x its
     Mamba layers (forward and remat's recompute), its backward once per
-    Mamba layer, flash 2 x the attention applications and dQ = dK/dV
-    once each. Finite loss and grad norm every step; the wall per step,
+    Mamba layer on the family's body (zamba2's Mamba-2 on the Mamba-2
+    body, falcon-mamba's Mamba-1 on the Mamba-1 body), flash 2 x the
+    attention applications and dQ = dK/dV once each. Finite loss and grad
+    norm every step; the wall per step,
     tokens/s, peak memory and one profiled step. Returns the launches."""
     from repro_torch.kernels import cuda as kc
     from repro_torch.models import Model
@@ -3031,7 +3089,7 @@ def check_scan_training(torch, card, cfg, steps, label, cut=""):
     n_scan, n_attn = len(cfg.ssm_layer_ids()), len(cfg.attn_layer_ids())
     want = {"selective_scan": 2 * n_scan, "selective_scan_bwd": n_scan,
             "flash_attention": 2 * n_attn, "flash_attention_bwd_dq": n_attn,
-            "flash_attention_bwd_dkdv": n_attn}
+            "flash_attention_bwd_dkdv": n_attn, **scan_bwd_bodies(cfg)}
     b, s = SCAN_TRAIN_BATCH
     step = build_train_step(model, OptimizerConfig(
         lr=3e-4, warmup_steps=2, total_steps=steps))
@@ -3053,7 +3111,8 @@ def check_scan_training(torch, card, cfg, steps, label, cut=""):
         loss, gnorm = met["loss"].item(), met["grad_norm"].item()
         walls.append(time.perf_counter() - t0)
         losses.append(loss)
-        n = {k: kc.launches[k] for k in total}
+        counts = dict(kc.launches, **kc.variant_launches)
+        n = {k: counts[k] for k in total}
         if n != want or kc.launches["decode_attention"]:
             fail(f"{label} {cfg.name} step {i + 1}: launches "
                  f"{dict(kc.launches)}, expected {want}")
@@ -3333,13 +3392,19 @@ def main() -> None:
 
     kernels = []
     for name, (src, rep) in SOURCES.items():
-        # the backward's bf16 (tensor-core) rows follow its f32 ones under
-        # the same name; `launches` counts the entry point on the main path
-        for key in (name, f"{name}/bfloat16"):
+        # the backwards' further rows (bf16, the scan backward's Mamba-2
+        # body) follow their first under the same name; `launches` counts
+        # the entry point on the main path, `body_launches` a scan
+        # backward row's body
+        for key in [name] + sorted(k for k in rows if k.startswith(name + "/")):
             if key in rows:
+                row = dict(rows[key])
+                if "body" in row and name == "selective_scan_bwd":
+                    row["body_launches"] = launches.get(
+                        f"{name}/{row['body']}", 0)
                 kernels.append(dict(name=name, route="cuda", source=src,
                                     replaces=rep, launches=launches[name],
-                                    **rows[key]))
+                                    **row))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -5,7 +5,7 @@
 
 For the falcon-mamba-7b prefill shape (rows of a 512 bucket, d_inner 8192,
 N 16, B and C as column slices of the x_proj output) and the zamba2-2.7b
-Mamba-2 prefill mapped onto the scan (`ops.ssd_scan_args`: 80 heads of 64
+Mamba-2 prefill mapped onto the scan (`ops.ssd_channel_args`: 80 heads of 64
 channels, D 5120, N 64) at 1 x 512 (the engine's usual prefill group) and
 at B=4 with ragged lengths, each
 (states per thread, steps per chunk) the kernel takes replaces the
@@ -30,7 +30,7 @@ import chip_smoke as cs  # noqa: E402
 def mamba2_inputs(torch, gen, lengths, dtype):
     """zamba2's Mamba-2 inputs as the scan kernel receives them."""
     from repro_torch.kernels import ops
-    return ops.ssd_scan_args(*cs.ssd_inputs(torch, gen, lengths, dtype))
+    return ops.ssd_channel_args(*cs.ssd_inputs(torch, gen, lengths, dtype))
 
 
 SHAPES = [(make, lengths) for make in (cs.scan_inputs, mamba2_inputs)
@@ -55,7 +55,7 @@ def main() -> None:
             cases.append((dtype, tol, args,
                           ref.selective_scan_with_state_ref(*args)))
         b, s, d = args[0].shape
-        n = args[2].shape[1]
+        n = args[3].shape[-1]
         b_ms, b_by, _ = cs.scan_bound(torch, b, s, d, n)
         print(f"B={b} S={s} D={d} N={n}, lengths {lengths}; bound "
               f"{b_ms:.4f} ms ({b_by}); wrapper's plan {plan(b, s, d, n)}",

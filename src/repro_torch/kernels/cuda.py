@@ -6,8 +6,10 @@ stream, raises if the launch returned a CUDA error, and adds one to its
 entry in ``launches`` — there and nowhere else, so a run can show that it
 went through the kernel. ``variant_launches`` counts the flash launches,
 forward and backward, by the body they ran (tensor-core for bf16,
-CUDA-core for f32); ``flash_plan`` picks the tensor-core body's
-query-tile height from the grid's size.
+CUDA-core for f32), and the scan backward's by its body (Mamba-1's for
+an A per (channel, state), Mamba-2's for an A per channel);
+``flash_plan`` picks the tensor-core body's query-tile height from the
+grid's size.
 
 The decode wrappers plan their split-KV launch on the host with
 ``decode_plan`` (from the cache's capacity, never from ``lengths``, which
@@ -25,7 +27,7 @@ which reads it) computes the gradients; ``kernels/ops.py:FlashAttention``
 ties the two together for autograd. Likewise ``selective_scan(...,
 save_states=True)`` also returns the state after each of its chunks and
 its launch plan, from which ``selective_scan_bwd`` (one call: the scan in
-reverse, then a small kernel that sums its per-block partials) computes
+reverse, then a small kernel that sums its per-cluster partials) computes
 the gradients; ``kernels/ops.py:SelectiveScan`` ties those two together.
 The forward wrappers have no backward of their own, so every one refuses,
 in grad mode, inputs that require grad (``_no_grad``): a launch would hand
@@ -59,6 +61,8 @@ variant_launches = {
     "flash_attention/cuda_core": 0,       # f32: FMA
     "flash_attention_bwd/tensor_core": 0,
     "flash_attention_bwd/cuda_core": 0,
+    "selective_scan_bwd/mamba1": 0,       # A (D, N): a decay per state
+    "selective_scan_bwd/mamba2": 0,       # A (D,): one decay per channel
 }
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -79,7 +83,7 @@ _SIGS = {
                                _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "selective_scan": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                        _I, _I, _I, _L, _L, _L, _L, _P],
-    "selective_scan_bwd": [_I] + [_P] * 18 + [_I] * 6 + [_L] * 4 + [_P],
+    "selective_scan_bwd": [_I] + [_P] * 18 + [_I] * 7 + [_L] * 4 + [_P],
 }
 _LIB_OF = {
     "decode_attention": "decode_attention",
@@ -488,13 +492,15 @@ def scan_plan(b: int, s: int, d: int, n: int, itemsize: int = 2) -> ScanPlan:
 
 
 def _scan_shapes(name, x, dt, A, B, C, D) -> int:
-    """Checks shared by the scan's forward and backward wrappers -> N."""
+    """Checks shared by the scan's forward and backward wrappers -> N. A
+    is (D, N), or (D,): one scalar per channel."""
     bsz, s, d = x.shape
-    n = A.shape[1]
+    n = B.shape[-1]
     if n not in SCAN_STATES:
         raise ValueError(f"{name}: unsupported d_state {n} "
                          f"(one of {SCAN_STATES})")
-    if (dt.shape != x.shape or A.shape != (d, n) or D.shape != (d,)
+    a_ok = tuple(A.shape) in ((d, n), (d,))
+    if (dt.shape != x.shape or not a_ok or D.shape != (d,)
             or B.shape != (bsz, s, n) or C.shape != (bsz, s, n)):
         raise ValueError(f"{name}: shape mismatch x {tuple(x.shape)} dt "
                          f"{tuple(dt.shape)} A {tuple(A.shape)} B "
@@ -511,8 +517,10 @@ def _scan_shapes(name, x, dt, A, B, C, D) -> int:
 
 def selective_scan(x, dt, A, B, C, D, *, return_state=False,
                    save_states=False):
-    """x, dt (B,S,D) contiguous; A (D,N); B, C (B,S,N) with unit last
-    stride (strided views are fine); D (D,) -> y (B,S,D) in x's dtype, and
+    """x, dt (B,S,D) contiguous; A (D,N), or (D,) for one scalar per
+    channel (Mamba-2's, ``ops.ssd_channel_args``), which the kernel reads
+    expanded to (D,N); B, C (B,S,N) with unit last stride (strided views
+    are fine); D (D,) -> y (B,S,D) in x's dtype, and
     with return_state also h_last (B,D,N) f32. With save_states (for
     training) -> (y, states, plan) instead: states (B, ceil(S/T), D, N)
     f32 holds h after each T-step chunk of the launch plan `plan` (T =
@@ -525,6 +533,8 @@ def selective_scan(x, dt, A, B, C, D, *, return_state=False,
     _no_grad(name, x, dt, A, B, C, D)
     n = _scan_shapes(name, x, dt, A, B, C, D)
     bsz, s, d = x.shape
+    if A.dim() == 1:
+        A = A[:, None].expand(d, n)
     A = A.float().contiguous()
     D = D.float().contiguous()
     plan = scan_plan(bsz, s, d, n, x.element_size())
@@ -545,21 +555,46 @@ def selective_scan(x, dt, A, B, C, D, *, return_state=False,
     return (y, h) if return_state else y
 
 
+def scan_bwd_cluster(d: int) -> int:
+    """Channel blocks per cluster of the scan backward for d channels: the
+    blocks of one batch row whose dB and dC sums it adds in distributed
+    shared memory, the most of 8, 4, 2 and 1 that divides the channel
+    blocks."""
+    ncb = _cdiv(d, SCAN_CHANNELS)
+    c = 8
+    while ncb % c:
+        c //= 2
+    return c
+
+
 def selective_scan_bwd(x, dt, A, B, C, D, states, dy, plan: ScanPlan):
     """Gradients of ``selective_scan`` from the forward's inputs, its chunk
     `states` and launch `plan` (``save_states=True``) and the output's
     gradient `dy` (B,S,D) -> (dx, ddt, dA, dB, dC, dD): dx, ddt (B,S,D)
-    and dB, dC (B,S,N, contiguous) in x's dtype, dA (D,N) and dD (D,) f32.
-    One call, two launches on one stream: the scan in reverse, which writes
-    per-block partial sums of dB and dC (over channel blocks) and of dA and
-    dD (over batch rows) into f32 buffers allocated here, then the sums of
-    those partials in a fixed order. Deterministic: no atomics."""
+    and dB, dC (B,S,N, contiguous) in x's dtype, dA (A's shape) and dD
+    (D,) f32.
+
+    A (D, N) runs the Mamba-1 body and gives dA (D, N). A (D,), one scalar
+    per channel (Mamba-2's per-head A over its head's channels,
+    ``ops.ssd_channel_args``; the forward kernel reads it expanded),
+    runs the Mamba-2 body, which takes one decay per (b, t, channel), and
+    gives dA (D,). ``variant_launches`` counts each call by its body. The
+    backward reads the forward's chunk states at its `plan.steps` and
+    takes its own states per thread. One call, two launches on one
+    stream: the scan in reverse, which writes partial sums of dB and dC
+    (over the channel blocks of a cluster, ``scan_bwd_cluster``) and of dA
+    and dD (over batch rows) into f32 buffers allocated here, then the
+    sums of those partials in a fixed order. Deterministic: no atomics."""
     name = "selective_scan_bwd"
     n = _scan_shapes(name, x, dt, A, B, C, D)
+    per_channel = A.dim() == 1
     bsz, s, d = x.shape
     if dy.shape != x.shape:
         raise ValueError(f"{name}: dy {tuple(dy.shape)} must be x's shape "
                          f"{tuple(x.shape)}")
+    if plan.steps not in SCAN_STEPS:
+        raise ValueError(f"{name}: {plan.steps} steps per chunk (one of "
+                         f"{SCAN_STEPS})")
     want = (bsz, _cdiv(s, plan.steps), d, n)
     if tuple(states.shape) != want:
         raise ValueError(f"{name}: states {tuple(states.shape)} must be "
@@ -568,22 +603,23 @@ def selective_scan_bwd(x, dt, A, B, C, D, states, dy, plan: ScanPlan):
     _check(name, states, dtype=torch.float32)
     A = A.float().contiguous()
     D = D.float().contiguous()
-    ncb = _cdiv(d, SCAN_CHANNELS)
+    cl = scan_bwd_cluster(d)
+    ncl = _cdiv(d, SCAN_CHANNELS) // cl
     dx, ddt = torch.empty_like(x), torch.empty_like(x)
     dB = torch.empty((bsz, s, n), dtype=x.dtype, device=x.device)
     dC = torch.empty_like(dB)
-    dA = torch.empty((d, n), dtype=torch.float32, device=x.device)
+    dA = torch.empty(A.shape, dtype=torch.float32, device=x.device)
     dD = torch.empty((d,), dtype=torch.float32, device=x.device)
-    # the per-block partial sums: dB and dC per channel block, dA and dD
-    # per batch row
+    # the partial sums: dB and dC per cluster, dA and dD per batch row
     parts = [torch.empty(shape, dtype=torch.float32, device=x.device)
-             for shape in ((bsz, s, ncb, n), (bsz, s, ncb, n), (bsz, d, n),
-                           (bsz, d))]
-    _run(name, None, _dtype(name, x), x.data_ptr(), dt.data_ptr(),
-         A.data_ptr(), B.data_ptr(), C.data_ptr(), D.data_ptr(),
-         states.data_ptr(), dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
-         dB.data_ptr(), dC.data_ptr(), dA.data_ptr(), dD.data_ptr(),
-         *(t.data_ptr() for t in parts),
-         bsz, s, d, n, plan.npl, plan.steps, B.stride(0), B.stride(1),
-         C.stride(0), C.stride(1), _stream())
+             for shape in ((bsz, s, ncl, n), (bsz, s, ncl, n),
+                           (bsz,) + tuple(A.shape), (bsz, d))]
+    body = "mamba2" if per_channel else "mamba1"
+    _run(name, f"{name}/{body}", _dtype(name, x), x.data_ptr(),
+         dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+         D.data_ptr(), states.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+         ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(), dA.data_ptr(),
+         dD.data_ptr(), *(t.data_ptr() for t in parts),
+         bsz, s, d, n, plan.steps, int(per_channel), cl, B.stride(0),
+         B.stride(1), C.stride(0), C.stride(1), _stream())
     return dx, ddt, dA, dB, dC, dD

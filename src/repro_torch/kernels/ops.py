@@ -25,7 +25,10 @@ refuse, in grad mode, inputs that require grad
 
 Mamba-2's recurrence (``ssd``) runs on the same scan kernel: it is the
 selective scan with each head's dt, A and D broadcast over the head's
-channels (``ssd_scan_args``). The reference's chunked SSD
+channels, A as one scalar per channel (``ssd_channel_args``). In
+training its backward runs the backward kernel's Mamba-2 body, which
+takes one decay per (b, t, channel) where the Mamba-1 body takes one per
+state. The reference's chunked SSD
 (``src/repro/kernels/ops.py:_ssd_chunked``) is its TPU kernelisation in
 XLA, not a Pallas kernel, and like Mamba-1's ``"chunked"`` scan it has no
 counterpart here.
@@ -76,10 +79,14 @@ class SelectiveScan(torch.autograd.Function):
     writes h after each of its T-step chunks and saves them with the
     inputs and its launch plan; the backward launches
     ``selective_scan_bwd`` with that plan, which recomputes h inside each
-    chunk from those states. A and D come back in their own shapes, so an
-    expanded A (Mamba-2's per-head A, ``ssd_scan_args``) gets its
-    gradient summed by autograd. Under ``torch.utils.checkpoint`` the
-    recomputed forward launches the scan again and saves afresh."""
+    chunk from those states. A is (D, N) (Mamba-1: the backward's Mamba-1
+    body) or (D,), one scalar per channel (Mamba-2, ``ssd_channel_args``:
+    the forward's wrapper expands it to (D, N) for its kernel, the
+    backward's Mamba-2 body reads it as it is). A and D come back in their
+    own shapes, so
+    autograd sums Mamba-2's per-channel dA and dD over each head. Under
+    ``torch.utils.checkpoint`` the recomputed forward launches the scan
+    again and saves afresh."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, D):
@@ -175,28 +182,28 @@ def selective_scan_step(h, x, dt, A, B, C, D):
     return _ref.selective_scan_step_ref(h, x, dt, A, B, C, D)
 
 
-def ssd_scan_args(x, dt, A, B, C, D):
-    """Mamba-2's arguments as the selective scan's, channel c = head * HD
-    + p: x (B,S,NH,HD) -> contiguous (B,S,NH*HD); dt (B,S,NH) -> each
-    head's dt repeated over its HD channels, contiguous, in x's dtype;
-    A (NH,) -> (NH*HD, N); D (NH,) -> (NH*HD,); B and C as they are
-    (column slices of the conv output, unit last stride). The scan's
-    h_last (B, NH*HD, N) is then (B, NH, HD, N) as a view."""
+def ssd_channel_args(x, dt, A, B, C, D):
+    """Mamba-2's arguments per channel, channel c = head * HD + p: x
+    (B,S,NH,HD) -> contiguous (B,S,NH*HD); dt (B,S,NH) -> each head's dt
+    repeated over its HD channels, contiguous, in x's dtype; A (NH,) ->
+    (NH*HD,) and D (NH,) -> (NH*HD,), f32; B and C as they are (column
+    slices of the conv output, unit last stride). The scan's h_last
+    (B, NH*HD, N) is then (B, NH, HD, N) as a view."""
     b, s, nh, hd = x.shape
-    n = B.shape[-1]
     xs = x.reshape(b, s, nh * hd).contiguous()
     dts = dt.to(x.dtype).repeat_interleave(hd, dim=-1)
-    As = A.float().repeat_interleave(hd)[:, None].expand(nh * hd, n)
-    return xs, dts, As, B, C, D.float().repeat_interleave(hd)
+    return (xs, dts, A.float().repeat_interleave(hd), B, C,
+            D.float().repeat_interleave(hd))
 
 
 def ssd(x, dt, A, B, C, D):
     """Mamba-2 recurrence. x (B,S,NH,HD); dt (B,S,NH); A (NH,); B, C
-    (B,S,N); D (NH,) -> y (B,S,NH,HD) in x's dtype. Trains on CUDA as
-    ``selective_scan`` does: autograd carries the gradients of the mapped
-    arguments back through ``ssd_scan_args`` to each head's dt, A and D."""
+    (B,S,N); D (NH,) -> y (B,S,NH,HD) in x's dtype. Trains on CUDA
+    through ``SelectiveScan`` on ``ssd_channel_args``: the backward
+    kernel's Mamba-2 body gives the per-channel gradients, and autograd
+    carries them back to each head's dt, A and D."""
     if x.is_cuda:
-        return _scan(*ssd_scan_args(x, dt, A, B, C, D)).view(x.shape)
+        return _scan(*ssd_channel_args(x, dt, A, B, C, D)).view(x.shape)
     return _ref.ssd_ref(x, dt, A, B, C, D)
 
 
@@ -204,7 +211,7 @@ def ssd_with_state(x, dt, A, B, C, D):
     """The recurrence and its final state: -> (y (B,S,NH,HD),
     h_last (B,NH,HD,N) f32)."""
     if x.is_cuda:
-        y, h = _cuda.selective_scan(*ssd_scan_args(x, dt, A, B, C, D),
+        y, h = _cuda.selective_scan(*ssd_channel_args(x, dt, A, B, C, D),
                                     return_state=True)
         b, _, nh, hd = x.shape
         return y.view(x.shape), h.view(b, nh, hd, -1)

@@ -175,7 +175,7 @@ def paged_decode_attention_ref(
 def selective_scan_with_state_ref(
     x: torch.Tensor,     # (B, S, D)   D = d_inner
     dt: torch.Tensor,    # (B, S, D)   softplus'd timestep
-    A: torch.Tensor,     # (D, N)      negative (continuous-time)
+    A: torch.Tensor,     # (D, N), or (D,) per channel; negative
     B: torch.Tensor,     # (B, S, N)
     C: torch.Tensor,     # (B, S, N)
     D: torch.Tensor,     # (D,)
@@ -184,10 +184,14 @@ def selective_scan_with_state_ref(
 
     h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) * B_t;  y_t = C_t . h_t + D*x_t
     The arithmetic of the reference's ``ssm._scan_with_state``: f32 state
-    from zero, y cast to x's dtype, h_last (B, D, N) kept f32."""
+    from zero, y cast to x's dtype, h_last (B, D, N) kept f32. A (D,), one
+    scalar per channel (``ops.ssd_channel_args``), is A (D, N) expanded
+    over the states, as the kernel's wrapper takes it."""
     bsz, s, d = x.shape
-    n = A.shape[1]
+    n = B.shape[-1]
     A = A.float()
+    if A.dim() == 1:
+        A = A[:, None].expand(d, n)
     h = torch.zeros((bsz, d, n), dtype=torch.float32, device=x.device)
     xf, dtf, Bf, Cf = (t.float() for t in (x, dt, B, C))
     y = torch.empty((bsz, s, d), dtype=torch.float32, device=x.device)
@@ -214,27 +218,40 @@ def selective_scan_bwd_ref(x, dt, A, B, C, D, dy):
     dA = sum_{b,t} g_t dt_t a_t h_{t-1} and dD = sum_{b,t} dy_t x_t.
     Returns (dx, ddt, dA, dB, dC, dD): dx, ddt, dB and dC in their inputs'
     dtypes, dA and dD f32 — the plain version of the backward kernel
-    (csrc/selective_scan_bwd.cu)."""
+    (csrc/selective_scan_bwd.cu).
+
+    A (D, N) is the Mamba-1 body's form. A (D,), one scalar per channel,
+    is the Mamba-2 body's (``ops.ssd_channel_args``): the decay a_t is
+    then one value per (b, t, d), A folds out of the sums over n,
+    ddt_t = A a_t sum_n g_t h_{t-1} + x_t sum_n g_t B_t and
+    dA = sum_{b,t} dt_t a_t sum_n g_t h_{t-1}, and dA is (D,)."""
     bsz, s, d = x.shape
-    n = A.shape[1]
+    n = B.shape[-1]
     A = A.float()
+    per_channel = A.dim() == 1
+    a_bc = A[:, None] if per_channel else A    # (D, 1) or (D, N)
     xf, dtf, Bf, Cf, dyf = (t.float() for t in (x, dt, B, C, dy))
     hs = [torch.zeros((bsz, d, n), dtype=torch.float32, device=x.device)]
     for t in range(s):                       # h_t, from the zero state
-        hs.append(torch.exp(dtf[:, t, :, None] * A[None]) * hs[-1]
+        hs.append(torch.exp(dtf[:, t, :, None] * a_bc[None]) * hs[-1]
                   + (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :])
     dx, ddt = torch.empty_like(xf), torch.empty_like(xf)
     dB, dC = torch.empty_like(Bf), torch.empty_like(Cf)
     dA = torch.zeros_like(A)
     carry = torch.zeros_like(hs[0])          # a_{t+1} g_{t+1}
     for t in reversed(range(s)):
-        a = torch.exp(dtf[:, t, :, None] * A[None])
+        a = torch.exp(dtf[:, t, :, None] * a_bc[None])
         g = Cf[:, t, None, :] * dyf[:, t, :, None] + carry
         s1 = (g * Bf[:, t, None, :]).sum(-1)
-        q = g * a * hs[t]
         dx[:, t] = dtf[:, t] * s1 + D.float() * dyf[:, t]
-        ddt[:, t] = (q * A[None]).sum(-1) + xf[:, t] * s1
-        dA += (q * dtf[:, t, :, None]).sum(0)
+        if per_channel:                      # a_t sum_n g_t h_{t-1}
+            r = a[..., 0] * (g * hs[t]).sum(-1)
+            ddt[:, t] = A * r + xf[:, t] * s1
+            dA += (r * dtf[:, t]).sum(0)
+        else:
+            q = g * a * hs[t]
+            ddt[:, t] = (q * A[None]).sum(-1) + xf[:, t] * s1
+            dA += (q * dtf[:, t, :, None]).sum(0)
         dB[:, t] = (g * (dtf[:, t] * xf[:, t])[..., None]).sum(1)
         dC[:, t] = (dyf[:, t, :, None] * hs[t + 1]).sum(1)
         carry = a * g

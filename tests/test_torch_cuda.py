@@ -19,7 +19,7 @@ makes) and the tensor-core flash body (bf16; f32 runs the CUDA-core body)
 are covered case by case, hd 80 included, and so are bidirectional flash
 with Sq != Sk and with Sq = 1 (an encoder-decoder's cross-attention at
 prefill and at decode). Mamba-2 runs on
-the scan kernel through ``ops.ssd_scan_args`` and is held against the plain
+the scan kernel through ``ops.ssd_channel_args`` and is held against the plain
 Mamba-2 recurrence at the scan's tolerances, N 64 and D 5120 included.
 The flash kernel's `lse` output is held against ``attention_lse_ref``
 and the backward kernels against ``attention_bwd_ref`` (f32 1e-4, bf16
@@ -30,13 +30,17 @@ selects (bf16 tensor cores, f32 CUDA cores); the autograd Function
 through ``torch.utils.checkpoint`` against torch autograd of the plain
 attention on the CPU, and every kernel without a backward must raise in
 grad mode rather than drop gradients. The scan's backward kernel is held
-against ``selective_scan_bwd_ref`` at the same tolerances, for every
-launch plan the forward can take at N 16 and 64, at odd D, S past a
-chunk, strided B and C and zeroed dt, bitwise equal over two launches;
-the forward's y is bitwise the same with and without its chunk states,
-and the last chunk state is its final state. ``ops.SelectiveScan`` (through
-``ops.selective_scan`` and ``ops.ssd``) under ``torch.utils.checkpoint``
-is held against torch autograd of the plain scans on the CPU.
+against ``selective_scan_bwd_ref`` at the same tolerances, in both its
+bodies (Mamba-1: A (D, N); Mamba-2: A one scalar per channel, (D,)), for
+every launch plan the forward can take at N 16 and 64, at odd D, S past a
+chunk, strided B and C and zeroed dt, bitwise equal over two launches and
+counted by body; the Mamba-2 body equals the Mamba-1 body on the same A
+expanded; the wrapper refuses mismatched states and an A of the wrong
+form before any launch; the forward's y is bitwise the same with and
+without its chunk states, and the last chunk state is its final state.
+``ops.SelectiveScan`` (through ``ops.selective_scan`` and ``ops.ssd``)
+under ``torch.utils.checkpoint`` is held against torch autograd of the
+plain scans on the CPU, each scan's backward on its own body.
 """
 import numpy as np
 import pytest
@@ -462,14 +466,19 @@ SCAN_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 def _check_scan_bwd(args, plan_states, dtype, seed=22):
     """The backward kernel on `args` with the forward's (states, plan)
     against selective_scan_bwd_ref, each gradient relative to its max
-    magnitude; two launches bitwise equal. Returns the launch's grads."""
+    magnitude; two launches bitwise equal, on the body A's form selects.
+    Returns the launch's grads."""
     states, plan = plan_states
     g = torch.Generator().manual_seed(seed)
     dy = torch.randn(args[0].shape, generator=g).to(args[0])
+    body = "selective_scan_bwd/" + ("mamba2" if args[2].dim() == 1
+                                    else "mamba1")
     n0 = tcuda.launches["selective_scan_bwd"]
+    v0 = tcuda.variant_launches[body]
     got = tcuda.selective_scan_bwd(*args, states, dy, plan)
     again = tcuda.selective_scan_bwd(*args, states, dy, plan)
     assert tcuda.launches["selective_scan_bwd"] == n0 + 2
+    assert tcuda.variant_launches[body] == v0 + 2
     torch.cuda.synchronize()
     want = tref.selective_scan_bwd_ref(*args, dy)
     for name, a, b_, w in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got,
@@ -485,30 +494,58 @@ def _check_scan_bwd(args, plan_states, dtype, seed=22):
 
 
 def _forward_with_states(args):
-    """The forward with its chunk states: y bitwise the serving launch's,
-    the last chunk state bitwise its h_last. Returns (states, plan)."""
+    """The forward with its chunk states (A per channel or per (channel,
+    state), as ops.SelectiveScan hands it over): y bitwise the serving
+    launch's, the last chunk state bitwise its h_last. Returns (states,
+    plan)."""
     y0, h = tcuda.selective_scan(*args, return_state=True)
     y, states, plan = tcuda.selective_scan(*args, save_states=True)
     b, s, d = args[0].shape
-    assert states.shape == (b, -(-s // plan.steps), d, args[2].shape[1])
+    assert states.shape == (b, -(-s // plan.steps), d, args[3].shape[-1])
     assert torch.equal(y, y0)
     assert torch.equal(states[:, -1], h)
     return states, plan
+
+
+def _body_args(args, body):
+    """Scan args for a backward body: Mamba-1 takes them as they are;
+    Mamba-2 takes A as one scalar per channel (the first state's)."""
+    if body == "mamba1":
+        return args
+    x, dt, A, B, C, D = args
+    return x, dt, A[:, 0].contiguous(), B, C, D
 
 
 @pytest.mark.parametrize("n,npl,steps", [
     (n, npl, steps) for n in (16, 64) for npl in tcuda.scan_npl_options(n)
     for steps in tcuda.SCAN_STEPS])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("body", ["mamba1", "mamba2"])
 def test_selective_scan_bwd_every_plan(dev, monkeypatch, n, npl, steps,
-                                       dtype):
+                                       dtype, body):
     """Every (states per thread, steps per chunk) plan at N 16 and 64,
-    forced through `scan_plan` as for the forward, on a ragged shape: the
-    backward runs the forward's plan over its chunk states."""
+    forced through `scan_plan` as for the forward, on a ragged shape, in
+    both bodies: the backward reads the forward's chunk states at the
+    forward's steps per chunk (its states per thread are its own)."""
     b, s, d = 2, 70, 72
     monkeypatch.setattr(tcuda, "scan_plan", lambda *_: tcuda.ScanPlan(
         npl, steps, (-(-d // 32), b), 32 * n // npl))
-    args = _scan_args(b, s, d, n, dtype, dev)
+    args = _body_args(_scan_args(b, s, d, n, dtype, dev), body)
+    _check_scan_bwd(args, _forward_with_states(args), dtype)
+
+
+@pytest.mark.parametrize("steps", sorted(tcuda.SCAN_STEPS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("body", ["mamba1", "mamba2"])
+def test_selective_scan_bwd_long_plan(dev, monkeypatch, steps, dtype, body):
+    """zamba2's width (D 5120, N 64) over 512 steps, many chunks, at each
+    steps per chunk forced through `scan_plan` (bf16 zamba2 trains at 64),
+    in both bodies: every chunk's start state read from the forward's
+    states at the forward's steps."""
+    b, s, d, n = 2, 512, 5120, 64
+    monkeypatch.setattr(tcuda, "scan_plan", lambda *_: tcuda.ScanPlan(
+        8, steps, (d // 32, b), 32 * n // 8))
+    args = _body_args(_scan_args(b, s, d, n, dtype, dev), body)
     _check_scan_bwd(args, _forward_with_states(args), dtype)
 
 
@@ -522,32 +559,69 @@ SCAN_BWD_CASES = [
 
 @pytest.mark.parametrize("case", SCAN_BWD_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_selective_scan_bwd_kernel(dev, case, dtype):
-    """The plan's own launch: strided B and C (gradients contiguous),
-    ragged zeroed dt, y unchanged by the chunk states, two backward
-    launches bitwise equal."""
-    args = _scan_args(*case, dtype, dev)
+@pytest.mark.parametrize("body", ["mamba1", "mamba2"])
+def test_selective_scan_bwd_kernel(dev, case, dtype, body):
+    """The plan's own launch, in both bodies: strided B and C (gradients
+    contiguous), ragged zeroed dt, y unchanged by the chunk states, two
+    backward launches bitwise equal."""
+    args = _body_args(_scan_args(*case, dtype, dev), body)
     assert not args[3].is_contiguous()
     _check_scan_bwd(args, _forward_with_states(args), dtype)
 
 
+@pytest.mark.parametrize("case", [(2, 77, 45, 16), (2, 19, 40, 64),
+                                  (1, 40, 5120, 64), (2, 130, 8192, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_bwd_bodies_agree(dev, case, dtype):
+    """The Mamba-2 body (A per channel) against the Mamba-1 body on the
+    same A expanded over the states (dA summed over them), within the
+    backward's tolerances relative to each gradient's max magnitude."""
+    args = _body_args(_scan_args(*case, dtype, dev), "mamba2")
+    states, plan = _forward_with_states(args)
+    g = torch.Generator().manual_seed(23)
+    dy = torch.randn(args[0].shape, generator=g).to(args[0])
+    two = tcuda.selective_scan_bwd(*args, states, dy, plan)
+    x, dt, A, B, C, D = args
+    one = list(tcuda.selective_scan_bwd(
+        x, dt, A[:, None].expand(-1, B.shape[-1]), B, C, D, states, dy, plan))
+    one[2] = one[2].sum(1)
+    for name, a, w in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), two, one):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        scale = max(w.float().abs().max().item(), 1e-6)
+        err = (a.float() - w.float()).abs().max().item()
+        assert err <= SCAN_BWD_TOL[dtype] * scale, (name, err, scale)
+
+
 def test_selective_scan_bwd_refuses_mismatched_states(dev):
+    """Mismatched chunk states, an A of neither form, a plan whose steps
+    the kernel lacks: each raises before any launch."""
     args = _scan_args(1, 40, 32, 16, torch.float32, dev)
     y, states, plan = tcuda.selective_scan(*args, save_states=True)
+    x, dt, A, B, C, D = args
     n0 = tcuda.launches["selective_scan_bwd"]
+    v0 = dict(tcuda.variant_launches)
     with pytest.raises(ValueError, match="states"):
         tcuda.selective_scan_bwd(*args, torch.cat([states, states], 1),
                                  torch.ones_like(y), plan)
+    for bad in (A[:, :8], A[:1, 0], A[:, 0, None].contiguous(), A[None]):
+        with pytest.raises(ValueError, match="shape mismatch"):
+            tcuda.selective_scan_bwd(x, dt, bad, B, C, D, states,
+                                     torch.ones_like(y), plan)
+    with pytest.raises(ValueError, match="steps per chunk"):
+        tcuda.selective_scan_bwd(*args, states, torch.ones_like(y),
+                                 plan._replace(steps=16))
     with pytest.raises(ValueError, match="not both"):
         tcuda.selective_scan(*args, return_state=True, save_states=True)
     assert tcuda.launches["selective_scan_bwd"] == n0
+    assert tcuda.variant_launches == v0
 
 
 def test_scan_autograd_under_checkpoint(dev):
     """A Mamba-1 scan (ops.selective_scan) and a Mamba-2 one (ops.ssd)
     between projections, under non-reentrant torch.utils.checkpoint, on
     the card (SelectiveScan) against torch autograd of the plain scans on
-    the CPU: forward, recomputed forward and backward launches counted."""
+    the CPU: forward, recomputed forward and backward launches counted,
+    the backward's by body."""
     from repro_torch.kernels import ops
     b, s, dm, di, n, nh = 2, 70, 32, 64, 16, 4
     g = torch.Generator().manual_seed(5)
@@ -580,6 +654,9 @@ def test_scan_autograd_under_checkpoint(dev):
     got = run(dev)
     assert tcuda.launches["selective_scan"] == 4      # 2 + 2 recomputed
     assert tcuda.launches["selective_scan_bwd"] == 2
+    # each scan's backward on its own body
+    assert tcuda.variant_launches["selective_scan_bwd/mamba1"] == 1
+    assert tcuda.variant_launches["selective_scan_bwd/mamba2"] == 1
     for a, e in zip(got, run("cpu")):
         scale = max(e.abs().max().item(), 1e-6)
         assert (a.cpu() - e).abs().max().item() <= 1e-4 * scale

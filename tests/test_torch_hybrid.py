@@ -7,7 +7,7 @@ The same numpy inputs go through the reference and the port:
   ``ssd_step_ref``) against the reference's ``ssd_ref``,
   ``ssm._ssd_with_state`` and ``ssd_step_ref``, relative to max |y| at the
   reference's Pallas-vs-ref scan bound (1e-5, ``tests/test_kernels.py:120``);
-- ``ops.ssd_scan_args`` — exactly what the CUDA path feeds the
+- ``ops.ssd_channel_args`` — exactly what the CUDA path feeds the
   selective-scan kernel — through the plain selective scan
   (``selective_scan_with_state_ref``) against ``ssd_with_state_ref``,
   with B and C as strided column slices and dt zeroed past ragged lengths;
@@ -145,7 +145,7 @@ def test_ssd_scan_mapping_matches_plain_ssd(shape, dtype):
     """The arguments the CUDA path hands the selective-scan kernel, run
     through the kernel's plain version, give the Mamba-2 recurrence: the
     kernel's input contract (x and dt contiguous in x's dtype, B and C
-    with a unit last stride, A (D, N), D (D,)) and the y / h_last
+    with a unit last stride, A and D (D,)) and the y / h_last
     layouts."""
     b, s, nh, hd, n = shape
     lens = [s] + [max(1, s - 7 * i) for i in range(1, b)]
@@ -157,12 +157,12 @@ def test_ssd_scan_mapping_matches_plain_ssd(shape, dtype):
     x = xbc[..., :di].reshape(b, s, nh, hd)
     B, C, dt = xbc[..., di:di + n], xbc[..., di + n:], dt.to(dtype)
     assert not x.is_contiguous()
-    args = tops.ssd_scan_args(x, dt, A, B, C, D)
+    args = tops.ssd_channel_args(x, dt, A, B, C, D)
     xs, dts, As, Bs, Cs, Ds = args
     assert xs.is_contiguous() and dts.is_contiguous()
     assert xs.shape == dts.shape == (b, s, nh * hd)
     assert dts.dtype == dtype and xs.dtype == dtype
-    assert As.shape == (nh * hd, n) and Ds.shape == (nh * hd,)
+    assert As.shape == Ds.shape == (nh * hd,)
     assert Bs.stride(2) == 1 and Cs.stride(2) == 1
     assert not Bs.is_contiguous()
     y_s, h_s = tref.selective_scan_with_state_ref(*args)
@@ -185,7 +185,8 @@ def test_ssd_dispatch_sends_cpu_tensors_to_plain_versions():
 def test_ssd_cuda_path_refuses_cpu_tensors():
     """No silent fallback: the kernel's wrapper takes the mapped arguments
     on a CUDA device only."""
-    args = tops.ssd_scan_args(*_torch_args(_ssd_inputs(5, 1, 8, 2, 32, 16)))
+    args = tops.ssd_channel_args(
+        *_torch_args(_ssd_inputs(5, 1, 8, 2, 32, 16)))
     with pytest.raises(ValueError, match="CUDA"):
         tcuda.selective_scan(*args, return_state=True)
     assert tcuda.launches["selective_scan"] == 0
