@@ -12,7 +12,10 @@ layer over engine-backed Llama-3-8B replicas, and speculative decoding
 over the Llama-3-8B target cut to 16 of its 32 layers (full width), and
 training of the full-width Granite-3-2B
 and Zamba2-2.7B and of Falcon-Mamba-7B cut to 24 of its 64 layers (f32
-AdamW of all 64 needs about 116 GB) — and holds every hand-written CUDA
+AdamW of all 64 needs about 116 GB), the serving launcher
+(``repro_torch.launch.serve``) over the full-width Llama-3-8B in f32, and
+expert-parallel MoE and DTensor sharding on a one-rank mesh — and holds
+every hand-written CUDA
 kernel on those paths against its plain PyTorch version. Phases, in
 order:
 
@@ -222,11 +225,30 @@ order:
    (90; 48), its backward once per Mamba layer (45 on the Mamba-2 body;
    24 on the Mamba-1 body), flash 18 and dQ
    = dK/dV = 9 (zamba2), the wall per step, tokens/s, peak memory and a
-   profiled step (busy time, idle share, the scan backward's share).
+   profiled step (busy time, idle share, the scan backward's share);
+14. the serving launcher and the distributed layer, after every phase
+   that holds a full-width model: (14a) ``repro_torch.launch.serve.main``
+   in-process with ``--mode engine --arch llama3-8b --requests 20`` and
+   no ``--device``, so its default takes the card: full-width,
+   full-depth llama3-8b with the reference's f32 params (about 32 GB),
+   8 slots, max_seq 128, the TPU_V5E virtual clock; the launch counters
+   set to 0 before and read after: flash and decode must have launched,
+   and the printed line must show 20/20 finished; (14b) a one-rank NCCL
+   group and a (1, 1) ("data", "model") ``DeviceMesh``: phase 11's
+   full-width qwen2-moe-a2.7b (bf16, seed 0) through
+   ``Model(moe_ep_mesh=mesh)`` against the plain ``Model`` at one
+   prefill of the first 4 prompts of phase 11's trace: the same top-1
+   tokens up to near-ties, logits within BF16_TOL, the same dropped
+   routed assignments; then every leaf of those params through
+   ``make_shardings`` + ``distribute_tensor`` onto the mesh, one at a
+   time, each local shard bitwise the leaf. One rank shows no
+   collective traffic: a multi-rank expert-parallel run needs more
+   than one card.
 
-It prints the kernels' JSON line (the backwards' bf16 rows follow their
-f32 ones under the same names, with `dtype` keys, and `body` keys for
-flash's), the card line,
+It prints each phase's wall (the host clock from the end of the
+previous phase), the kernels' JSON line (the backwards' bf16 rows
+follow their f32 ones under the same names, with `dtype` keys, and
+`body` keys for flash's), the card line,
 and last the result
 line {"ok": true, "device": {...}}. With no CUDA device, or outside a
 checkout of the repo, it exits non-zero and prints no result. Every
@@ -3247,12 +3269,163 @@ def profile_engine_steps(torch, model, params):
     profile_window(torch, "decode block, 8 slots x 600 ctx", decode, 4)
 
 
-def _leaves(tree):
+# ---------------------------------------------------------------------------
+# phase 14: the serving launcher and the distributed layer
+# ---------------------------------------------------------------------------
+
+SERVE_ARGV = ["--mode", "engine", "--arch", "llama3-8b", "--requests", "20"]
+EP_PROMPTS = 4             # rows of phase 11's trace in 14b's prefill
+
+
+def check_serve_launcher(torch, card):
+    """14a: ``repro_torch.launch.serve.main`` in-process with no
+    ``--device``, so its default takes the card: full-width, full-depth
+    llama3-8b in f32 (the reference's default params), 20 requests on the
+    TPU_V5E virtual clock, with the launch counters set to 0 just before
+    and read just after. Returns the launches."""
+    import io
+    from repro_torch.kernels import cuda as kc
+    from repro_torch.launch import serve
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    kc.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        serve.main(SERVE_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    n = dict(kc.launches)
+    out = buf.getvalue().splitlines()
+    for line in out:
+        print(f"  14a | {line}", flush=True)
+    line = [ln for ln in out if ln.startswith("engine:")]
+    if len(line) != 1 or not line[0].startswith("engine: 20/20 finished"):
+        fail(f"14a: the launcher's engine line is {line}")
+    print(f"  14a python -m repro_torch.launch.serve {' '.join(SERVE_ARGV)}"
+          f": wall {wall:.2f} s (f32 init included), peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches "
+          f"{ {k: v for k, v in n.items() if v} } ({card})", flush=True)
+    for k in ("flash_attention", "decode_attention"):
+        if n[k] <= 0:
+            fail(f"14a: the launcher's engine never launched {k}")
+    return n
+
+
+def check_moe_ep(torch, card):
+    """14b: a one-rank NCCL group and a (1, 1) ("data", "model") mesh on
+    the card. Phase 11's full-width qwen2-moe-a2.7b (bf16, seed 0)
+    through ``Model(moe_ep_mesh=mesh)`` and the plain ``Model``, one
+    prefill of the first EP_PROMPTS prompts of phase 11's trace (padded,
+    with lengths): the same top-1 tokens up to near-ties, logits within
+    BF16_TOL, the same dropped-assignment count. Then every leaf of the
+    params through ``make_shardings`` + ``distribute_tensor`` onto the
+    mesh, one at a time: each local shard bitwise the leaf. The group is
+    destroyed before it returns; a failure fails the run."""
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs.qwen2_moe_a2_7b import CONFIG
+    from repro_torch.distributed import make_shardings, param_specs
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import Model
+
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.HashStore())
+    try:
+        mesh = make_debug_mesh(1, 1, device_type="cuda")
+        model, params = full_width_model(torch, CONFIG)
+        ep = Model(CONFIG, device="cuda", moe_ep_mesh=mesh)
+        trace = make_trace(12, CONFIG.vocab_size, 0, (64, 513), (32, 65),
+                           0.05)[:EP_PROMPTS]
+        lengths = [r.prompt_len for r in trace]
+        s = max(lengths)
+        toks = np.zeros((len(trace), s), np.int32)
+        for i, r in enumerate(trace):
+            toks[i, :r.prompt_len] = r.prompt_tokens
+        batch = {"tokens": torch.as_tensor(toks).cuda(),
+                 "lengths": torch.tensor(lengths, dtype=torch.int32).cuda()}
+        res = {}
+        for name, m in (("plain", model), ("moe_ep", ep)):
+            ms = []
+            for _ in range(2):      # the first call also sets up NCCL
+                drops = dict(slots=len(trace) * s, routed=0, kept=0)
+                restore = _count_moe_drops(drops)
+                try:
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    lg, _ = m.prefill(params, batch, m.init_cache(
+                        len(trace), s + 1, dtype=torch.bfloat16))
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t) * 1e3)
+                finally:
+                    restore()
+            res[name] = (lg.float(), drops["routed"] - int(drops["kept"]),
+                         drops["routed"], ms)
+        (a, da, ra, ma), (b, db, rb, mb) = res["plain"], res["moe_ep"]
+        if not bool(torch.isfinite(b).all()) or \
+                b.shape != (len(trace), CONFIG.vocab_size):
+            fail(f"14b: bad moe_ep logits, shape {tuple(b.shape)}")
+        diff = float((a - b).abs().max())
+        ta, tb = a.argmax(-1), b.argmax(-1)
+        margins = [float(a[i, ta[i]] - a[i, tb[i]]) for i in range(len(trace))]
+        print(f"  14b prefill {len(trace)} x {s} (lengths {lengths}), "
+              f"first and second call: plain {ma[0]:.1f}, {ma[1]:.1f} ms, "
+              f"moe_ep {mb[0]:.1f}, {mb[1]:.1f} ms; max |logit diff| "
+              f"{diff:.4g} "
+              f"(tol {BF16_TOL}, max |logit| {float(a.abs().max()):.3f}); "
+              f"top-1 {ta.tolist()} vs {tb.tolist()} (margins {margins}); "
+              f"dropped {da} vs {db} of {ra} vs {rb} routed assignments "
+              f"({card})", flush=True)
+        if diff > BF16_TOL:
+            fail(f"14b: moe_ep logits differ by {diff} > {BF16_TOL}")
+        if any(m > BF16_FLIP_TOL for m in margins):
+            fail(f"14b: top-1 tokens differ beyond a near-tie: {margins}")
+        if (da, ra) != (db, rb) or ra == 0:
+            fail(f"14b: dropped assignments {da}/{ra} (plain) vs {db}/{rb} "
+                 "(moe_ep)")
+        del model, ep
+
+        specs = param_specs(mesh, params)
+        plc = make_shardings(mesh, specs)
+        t = time.perf_counter()
+        n = 0
+        for key, leaf in _leaf_items(params):
+            local = distribute_tensor(leaf, mesh, _at(plc, key)).to_local()
+            if local.shape != leaf.shape or not torch.equal(local, leaf):
+                fail(f"14b: {'|'.join(key)}'s local shard is not the leaf")
+            del local
+            n += 1
+        torch.cuda.synchronize()
+        sharded = sum(any(e is not None for e in _at(specs, k))
+                      for k, _ in _leaf_items(params))
+        print(f"  14b make_shardings + distribute_tensor: {n} leaves "
+              f"({sharded} with a sharded spec, every mesh axis of size 1) "
+              f"each bitwise its leaf, {time.perf_counter() - t:.1f} s",
+              flush=True)
+        del params
+    finally:
+        dist.destroy_process_group()
+
+
+def _leaf_items(tree, path=()):
     if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
+        for k, v in tree.items():
+            yield from _leaf_items(v, path + (k,))
     else:
-        yield tree
+        yield path, tree
+
+
+def _at(tree, key):
+    for k in key:
+        tree = tree[k]
+    return tree
+
+
+def _leaves(tree):
+    for _, leaf in _leaf_items(tree):
+        yield leaf
 
 
 SOURCES = {
@@ -3295,6 +3468,13 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    walls, t_mark = {}, [t_start]
+
+    def lap(phase):
+        """Record the wall since the previous phase ended."""
+        now = time.perf_counter()
+        walls[phase] = round(now - t_mark[0], 1)
+        t_mark[0] = now
 
     card = nvidia_smi()
     print(f"[1] device: {card} | torch {torch.__version__} CUDA "
@@ -3310,6 +3490,7 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    {name}: {line.strip()}")
+    lap("1-2")
 
     for name in build.SOURCES:
         text = build.sass(name)
@@ -3322,10 +3503,12 @@ def main() -> None:
     print("[3] kernels vs plain versions (main-path shapes; "
           f"{card}):", flush=True)
     rows = check_kernels(torch)
+    lap("3")
 
     print("[4] smoke engines, card vs CPU (f32):", flush=True)
     check_small_engine(torch)
     check_small_spec_moe(torch)
+    lap("4")
 
     launches = {}
 
@@ -3338,24 +3521,29 @@ def main() -> None:
     counts, llama, llama_params = check_full_engine(torch)
     add(counts)
     torch.cuda.empty_cache()
+    lap("5")
 
     print("[6] full-width falcon-mamba-7b engine (bf16):", flush=True)
     add(check_mamba_engine(torch))
     torch.cuda.empty_cache()
+    lap("6")
 
     print("[7] full-width zamba2-2.7b engine (bf16):", flush=True)
     add(check_zamba2_engine(torch))
     torch.cuda.empty_cache()
+    lap("7")
 
     print("[8] the HTTP/SSE server over the full-width llama3-8b engine "
           f"(bf16, wall clock; {card}):", flush=True)
     add(check_server(torch, llama, llama_params))
     torch.cuda.empty_cache()
+    lap("8")
 
     print("[9] the cluster layer over engine-backed full-width llama3-8b "
           f"replicas (bf16, virtual clock; {card}):", flush=True)
     add(check_cluster(torch, llama, llama_params))
     torch.cuda.empty_cache()
+    lap("9")
 
     print("[10] speculative decoding over the llama3-8b model cut to its "
           f"first {SPEC_LAYERS} of {llama.cfg.num_layers} layers (full width, "
@@ -3364,11 +3552,13 @@ def main() -> None:
                           card))
     del llama, llama_params
     torch.cuda.empty_cache()
+    lap("10")
 
     print(f"[11] full-width qwen2-moe-a2.7b engine (bf16; {card}):",
           flush=True)
     add(check_moe_engine(torch, card))
     torch.cuda.empty_cache()
+    lap("11")
 
     print("[12] full-width seamless-m4t-medium and pixtral-12b engines "
           f"(bf16; {card}):", flush=True)
@@ -3376,6 +3566,7 @@ def main() -> None:
         add(check(torch))
         torch.cuda.empty_cache()
     check_server_cli()
+    lap("12")
 
     print(f"[13] training ({card}):", flush=True)
     rows.update(check_backward_kernels(torch))
@@ -3389,6 +3580,16 @@ def main() -> None:
         torch, card, dataclasses.replace(FALCON, num_layers=FALCON_LAYERS),
         FALCON_STEPS, "13e",
         cut=f" (cut to {FALCON_LAYERS} of its {FALCON.num_layers} layers)"))
+    torch.cuda.empty_cache()
+    lap("13")
+
+    print(f"[14] the serving launcher and the distributed layer ({card}):",
+          flush=True)
+    add(check_serve_launcher(torch, card))
+    torch.cuda.empty_cache()
+    check_moe_ep(torch, card)
+    torch.cuda.empty_cache()
+    lap("14")
 
     kernels = []
     for name, (src, rep) in SOURCES.items():
@@ -3405,6 +3606,7 @@ def main() -> None:
                 kernels.append(dict(name=name, route="cuda", source=src,
                                     replaces=rep, launches=launches[name],
                                     **row))
+    print(f"phase walls (s; {card}): {walls}", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

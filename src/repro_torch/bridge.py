@@ -32,6 +32,9 @@ tensors, so a leaf's path and shape are the same on both sides.
   place of ``blocks``.
   A torch generator cannot reproduce ``jax.random``, so tests that
   compare the two frameworks bridge the reference's weights instead.
+- ``abstract_params``: the same tree as empty ``meta`` tensors, shapes
+  and dtypes only. Both walk one tree (``build_params``) with a different
+  leaf builder, so their layouts cannot drift apart.
 """
 from __future__ import annotations
 
@@ -84,35 +87,86 @@ def opt_state_to_numpy(opt):
                      to_numpy(opt.mu), to_numpy(opt.nu))
 
 
+class _Draw:
+    """`build_params`' leaf builder for real weights: draws on the
+    generator's device in f32 (a stack one layer at a time, so a
+    full-width 7-12B config never holds a whole f32 stack) and stores in
+    `dtype` on `device`."""
+
+    def __init__(self, generator: torch.Generator, device, dtype):
+        self.generator, self.device, self.dtype = generator, device, dtype
+
+    def normal(self, shape, std=0.02):
+        x = torch.randn(shape, generator=self.generator,
+                        device=self.generator.device,
+                        dtype=torch.float32) * std
+        return x.to(device=self.device, dtype=self.dtype)
+
+    def stacked(self, n, shape, std=0.02):
+        out = torch.empty((n, *shape), dtype=self.dtype, device=self.device)
+        for i in range(n):
+            out[i] = self.normal(shape, std)
+        return out
+
+    def full(self, value, *shape):
+        return torch.full(shape, value, dtype=self.dtype, device=self.device)
+
+    def log_arange(self, n, *lead):
+        """log(1..n) along a last axis of n, repeated over `lead`."""
+        a = torch.log(torch.arange(1, n + 1, dtype=torch.float32))
+        # a copy: an expanded view would alias one row across the stack
+        # and refuse in-place updates (AdamW)
+        return a.expand(*lead, n).to(device=self.device, dtype=self.dtype,
+                                     copy=True)
+
+
+class _Meta:
+    """`build_params`' leaf builder for shapes only: every leaf an empty
+    tensor on the ``meta`` device, nothing drawn or allocated."""
+
+    def __init__(self, dtype):
+        self.dtype = dtype
+
+    def _empty(self, shape):
+        return torch.empty(shape, dtype=self.dtype, device="meta")
+
+    def normal(self, shape, std=0.02):
+        return self._empty(shape)
+
+    def stacked(self, n, shape, std=0.02):
+        return self._empty((n, *shape))
+
+    def full(self, value, *shape):
+        return self._empty(shape)
+
+    def log_arange(self, n, *lead):
+        return self._empty((*lead, n))
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
                 dtype=torch.float32):
     """Random params of a model of any kind in the reference's tree
-    layout.
-
-    Draws on the generator's device in f32 (one layer at a time, so a
-    full-width 7-12B config never holds a whole f32 stack) and stores in
+    layout, drawn from `generator` (module docstring) and stored in
     `dtype` on `device`."""
-    dev = resolve_device(device)
-    gdev = generator.device
+    return build_params(cfg, _Draw(generator, resolve_device(device), dtype))
 
-    def normal(shape, std=0.02):
-        x = torch.randn(shape, generator=generator, device=gdev,
-                        dtype=torch.float32) * std
-        return x.to(device=dev, dtype=dtype)
 
-    def stacked(n, shape, std=0.02):
-        out = torch.empty((n, *shape), dtype=dtype, device=dev)
-        for i in range(n):
-            out[i] = normal(shape, std)
-        return out
+def abstract_params(cfg: ModelConfig, dtype=torch.float32):
+    """`init_params`' tree with every leaf an empty ``meta`` tensor of its
+    shape and `dtype` (the reference's ``jax.eval_shape`` of its init):
+    nothing is drawn, so llama3-405b costs no memory."""
+    return build_params(cfg, _Meta(dtype))
 
+
+def build_params(cfg: ModelConfig, b):
+    """The params tree of `cfg` with each leaf made by the builder `b`
+    (``_Draw`` or ``_Meta``), in a fixed order of draws."""
     L, d = cfg.num_layers, cfg.d_model
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    ones = lambda *s: torch.ones(s, dtype=dtype, device=dev)     # noqa: E731
-    full = lambda v, *s: torch.full(s, v, dtype=dtype, device=dev)  # noqa: E731
+    ones = lambda *s: b.full(1.0, *s)     # noqa: E731
 
     def draw_fn(n):
-        return normal if n is None else (lambda shape: stacked(n, shape))
+        return b.normal if n is None else (lambda shape: b.stacked(n, shape))
 
     def attn_leaves(n):
         """One attention block's leaves, stacked n deep (None: no axis)."""
@@ -121,9 +175,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
         attn = {"wq": draw((d, h * hd)), "wk": draw((d, kv * hd)),
                 "wv": draw((d, kv * hd)), "wo": draw((h * hd, d))}
         if cfg.qkv_bias:
-            attn.update(bq=full(0.0, *lead, h * hd),
-                        bk=full(0.0, *lead, kv * hd),
-                        bv=full(0.0, *lead, kv * hd))
+            attn.update(bq=b.full(0.0, *lead, h * hd),
+                        bk=b.full(0.0, *lead, kv * hd),
+                        bv=b.full(0.0, *lead, kv * hd))
         return attn
 
     def mlp_leaves(n):
@@ -148,42 +202,38 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
         """Router, stacked experts and shared experts, n layers deep."""
         m = cfg.moe
         e, f = m.num_experts, m.d_expert
-        p = {"router": stacked(n, (d, e)),
-             "experts": {"gate": stacked(n, (e, d, f)),
-                         "up": stacked(n, (e, d, f)),
-                         "down": stacked(n, (e, f, d))}}
+        p = {"router": b.stacked(n, (d, e)),
+             "experts": {"gate": b.stacked(n, (e, d, f)),
+                         "up": b.stacked(n, (e, d, f)),
+                         "down": b.stacked(n, (e, f, d))}}
         if m.num_shared_experts:
             fs = m.num_shared_experts * f
-            p["shared"] = {"up": stacked(n, (d, fs)),
-                           "down": stacked(n, (fs, d)),
-                           "gate": stacked(n, (d, fs))}
+            p["shared"] = {"up": b.stacked(n, (d, fs)),
+                           "down": b.stacked(n, (fs, d)),
+                           "gate": b.stacked(n, (d, fs))}
         return p
 
     params = {
-        "embed": {"table": normal((cfg.vocab_size, d), std=1.0)},
+        "embed": {"table": b.normal((cfg.vocab_size, d), std=1.0)},
         "final_norm": {"scale": ones(d)},
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = {"kernel": normal((d, cfg.vocab_size))}
+        params["lm_head"] = {"kernel": b.normal((d, cfg.vocab_size))}
     if cfg.kind == "ssm":
         di, n, k = cfg.d_inner, cfg.ssm.d_state, cfg.ssm.d_conv
         r = max(d // 16, 1)
-        a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32))
         params["blocks"] = {
             "norm_scale": ones(L, d),
             "mamba": {
-                "in_proj": stacked(L, (d, 2 * di)),
-                "conv_w": stacked(L, (k, di), std=0.1),
-                "conv_b": full(0.0, L, di),
-                "x_proj": stacked(L, (di, r + 2 * n)),
-                "dt_proj": stacked(L, (r, di), std=r ** -0.5),
-                "dt_bias": full(-2.0, L, di),
-                # a copy: an expanded view would alias one row across
-                # the stack and refuse in-place updates (AdamW)
-                "A_log": a_log.expand(L, di, n).to(device=dev, dtype=dtype,
-                                                   copy=True),
+                "in_proj": b.stacked(L, (d, 2 * di)),
+                "conv_w": b.stacked(L, (k, di), std=0.1),
+                "conv_b": b.full(0.0, L, di),
+                "x_proj": b.stacked(L, (di, r + 2 * n)),
+                "dt_proj": b.stacked(L, (r, di), std=r ** -0.5),
+                "dt_bias": b.full(-2.0, L, di),
+                "A_log": b.log_arange(n, L, di),
                 "D": ones(L, di),
-                "out_proj": stacked(L, (di, d)),
+                "out_proj": b.stacked(L, (di, d)),
             },
         }
         return params
@@ -199,19 +249,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
         def grid(t):            # (rounds * per_round, ...) -> (R, P, ...)
             return t.view(rounds, per, *t.shape[1:])
 
-        a_log = torch.log(torch.arange(1, nh + 1, dtype=torch.float32))
         params["rounds"] = {
             "norm_scale": ones(rounds, per, d),
             "mamba": {key: grid(t) for key, t in {
-                "in_proj": stacked(m, (d, 2 * di + 2 * n + nh)),
-                "conv_w": stacked(m, (k, di + 2 * n), std=0.1),
-                "conv_b": full(0.0, m, di + 2 * n),
-                "dt_bias": full(-2.0, m, nh),
-                "A_log": a_log.expand(m, nh).to(device=dev, dtype=dtype,
-                                                copy=True),
+                "in_proj": b.stacked(m, (d, 2 * di + 2 * n + nh)),
+                "conv_w": b.stacked(m, (k, di + 2 * n), std=0.1),
+                "conv_b": b.full(0.0, m, di + 2 * n),
+                "dt_bias": b.full(-2.0, m, nh),
+                "A_log": b.log_arange(nh, m),
                 "D": ones(m, nh),
                 "norm_scale": ones(m, di),
-                "out_proj": stacked(m, (di, d)),
+                "out_proj": b.stacked(m, (di, d)),
             }.items()},
         }
         params["shared"] = attn_mlp(None)
@@ -226,5 +274,5 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
         return params
     params["blocks"] = attn_mlp(L)
     if cfg.kind == "vlm":
-        params["vision_proj"] = {"kernel": normal((d, d))}
+        params["vision_proj"] = {"kernel": b.normal((d, d))}
     return params

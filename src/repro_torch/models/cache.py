@@ -48,14 +48,22 @@ def _num_attn_applications(cfg: ModelConfig) -> int:
     return cfg.num_layers
 
 
+def _cache_device(device, abstract: bool) -> torch.device:
+    """`device`, or ``meta`` for an abstract cache (shapes and dtypes
+    only, nothing allocated: the reference's ShapeDtypeStruct leaves)."""
+    return torch.device("meta") if abstract else resolve_device(device)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
-               enc_seq: int = 0, dtype=torch.bfloat16, device="cuda"):
+               enc_seq: int = 0, dtype=torch.bfloat16, device="cuda",
+               abstract: bool = False):
     """Contiguous decode cache, zero-filled. Attention layers (or shared
     attention applications) get k/v; Mamba layers get the scan state
     ssm_h in f32 and the conv buffer ssm_conv in `dtype`, in the module
     docstring's Mamba-1 or Mamba-2 layout; an encoder-decoder gets
-    cross_k/cross_v `enc_seq` positions deep and enc_length."""
-    dev = resolve_device(device)
+    cross_k/cross_v `enc_seq` positions deep and enc_length. With
+    `abstract` every leaf is on the ``meta`` device."""
+    dev = _cache_device(device, abstract)
     cache = {"length": torch.zeros((batch,), dtype=torch.int32, device=dev)}
     n = _num_attn_applications(cfg)
     if n:
@@ -94,12 +102,13 @@ def supports_physical_paging(cfg: ModelConfig) -> bool:
 
 def init_paged_cache(cfg: ModelConfig, batch: int, num_pages: int,
                      page_size: int, max_seq: int, *, dtype=torch.bfloat16,
-                     device="cuda"):
+                     device="cuda", abstract: bool = False):
     """Physically paged decode cache; sentinel table entries equal
-    `num_pages` so unallocated writes drop and gathers clamp."""
+    `num_pages` so unallocated writes drop and gathers clamp. With
+    `abstract` every leaf is on the ``meta`` device."""
     assert supports_physical_paging(cfg), cfg.kind
     assert 0 < page_size, page_size
-    dev = resolve_device(device)
+    dev = _cache_device(device, abstract)
     n = _num_attn_applications(cfg)
     max_pages = -(-max_seq // page_size)
     shape = (n, num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)

@@ -9,6 +9,8 @@
   logits, cache = model.decode_step(params, tokens, cache)
   logits, cache = model.verify_step(params, window, cache)   # speculative
   proposals, cache = model.propose_step(params, tokens, cache, k)
+  params = model.abstract_params()        # meta tensors: shapes, dtypes
+  specs = model.input_specs(get_shape("decode_32k"))
 
 The counterpart of ``src/repro/models/model.py`` for every family:
 dense, vlm (a vision-patch prefix), moe, ssm (Mamba-1), hybrid (Mamba-2
@@ -20,6 +22,12 @@ caches hold `enc_seq(max_seq)` positions of encoder memory:
 
 Params are the reference's stacked tree as a dict of tensors
 (``repro_torch.bridge``). Caches are updated in place.
+
+With ``moe_ep_mesh`` (a ``DeviceMesh`` with a ``model`` axis) a moe
+model's prefill and training forwards run expert-parallel
+(``distributed.moe_ep.moe_apply_ep``): each rank passes its data shard
+of the batch and holds the full params, of which it runs its E/tp
+experts. Decode keeps ``moe_apply``, as the reference's does.
 """
 from __future__ import annotations
 
@@ -27,7 +35,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import cache as cache_lib
 from repro_torch.models import transformer as tfm
@@ -42,7 +50,7 @@ def _argmax_ids(logits: torch.Tensor) -> torch.Tensor:
 class Model:
     def __init__(self, cfg: ModelConfig, *, window: Optional[int] = None,
                  moe_seq_chunk: int = 0, remat: bool = False,
-                 device="cuda"):
+                 moe_ep_mesh=None, device="cuda"):
         tfm.check_kind(cfg)
         self.cfg = cfg
         self.window = window
@@ -51,6 +59,9 @@ class Model:
         # sequence-chunked MoE dispatch (moe.moe_apply_chunked); 0 = one
         # capacity over the whole call, the reference's default
         self.moe_seq_chunk = moe_seq_chunk
+        # expert-parallel dispatch over this mesh's model axis
+        # (distributed/moe_ep.py); None = moe_apply on every rank
+        self.moe_ep_mesh = moe_ep_mesh
         self.device = resolve_device(device)
 
     # ------------------------------------------------------------------ init
@@ -58,13 +69,21 @@ class Model:
         from repro_torch.bridge import init_params
         return init_params(self.cfg, generator, self.device, dtype)
 
+    def abstract_params(self, dtype=torch.float32):
+        """`init`'s tree as ``meta`` tensors (shapes and dtypes, nothing
+        drawn or allocated): the reference's ``jax.eval_shape`` of its
+        init."""
+        from repro_torch.bridge import abstract_params
+        return abstract_params(self.cfg, dtype)
+
     # ----------------------------------------------------------------- train
     def forward_train(self, params, batch):
         """batch {"tokens" (B, S)} plus "patch_embeds" (vlm) or "frames"
         (encoder-decoder) -> (logits (B, S, V), aux)."""
         return tfm.forward(params, self.cfg, batch, window=self.window,
                            remat=self.remat,
-                           moe_seq_chunk=self.moe_seq_chunk)
+                           moe_seq_chunk=self.moe_seq_chunk,
+                           moe_ep_mesh=self.moe_ep_mesh)
 
     def loss(self, params, batch, *, ce_chunk: int = 1024):
         """Next-token cross-entropy (labels < 0 masked) + the MoE aux loss,
@@ -75,7 +94,8 @@ class Model:
         scalar."""
         h, aux = tfm.forward(params, self.cfg, batch, window=self.window,
                              remat=self.remat, return_hidden=True,
-                             moe_seq_chunk=self.moe_seq_chunk)
+                             moe_seq_chunk=self.moe_seq_chunk,
+                             moe_ep_mesh=self.moe_ep_mesh)
         labels = batch["labels"]
         s = h.shape[1]
         chunk = min(ce_chunk, s)
@@ -108,19 +128,20 @@ class Model:
         return max_seq // 4 if self.cfg.kind in tfm.ENCDEC_KINDS else 0
 
     def init_cache(self, batch: int, max_seq: int, *, enc_seq: int = 0,
-                   dtype=torch.float32):
+                   dtype=torch.float32, abstract: bool = False):
         return cache_lib.init_cache(self.cfg, batch, max_seq,
                                     enc_seq=enc_seq, dtype=dtype,
-                                    device=self.device)
+                                    device=self.device, abstract=abstract)
 
     def supports_physical_paging(self) -> bool:
         return cache_lib.supports_physical_paging(self.cfg)
 
     def init_paged_cache(self, batch: int, num_pages: int, page_size: int,
-                         max_seq: int, *, dtype=torch.float32):
+                         max_seq: int, *, dtype=torch.float32,
+                         abstract: bool = False):
         return cache_lib.init_paged_cache(
             self.cfg, batch, num_pages, page_size, max_seq, dtype=dtype,
-            device=self.device)
+            device=self.device, abstract=abstract)
 
     def prefill(self, params, batch, cache):
         """Run the prompt, fill the cache, return last-token logits.
@@ -150,7 +171,8 @@ class Model:
         h, _, parts = tfm.forward(params, cfg, batch, window=self.window,
                                   collect_cache=True, lengths=ctx_lengths,
                                   return_hidden=True,
-                                  moe_seq_chunk=self.moe_seq_chunk)
+                                  moe_seq_chunk=self.moe_seq_chunk,
+                                  moe_ep_mesh=self.moe_ep_mesh)
         for key in ("k", "v"):
             for i, part in enumerate(parts.get(key, ())):
                 cache[key][i, :, :part.shape[1]] = part
@@ -217,3 +239,43 @@ class Model:
         (B, k+1) int32, cache')."""
         return tfm.propose_step(params, self.cfg, tokens, cache, k,
                                 window=self.window)
+
+    # ------------------------------------------------------------- dry-run IO
+    def input_specs(self, shape: ShapeConfig, *, act_dtype=torch.bfloat16):
+        """``meta`` tensors standing in for the inputs of the phase's step
+        (the reference's ShapeDtypeStructs): tokens and labels (int32) for
+        train, frames (encoder-decoder) or patch_embeds (vlm) in
+        `act_dtype`, and for decode one token per row and an abstract
+        cache `shape.seq_len` deep in `act_dtype`."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+
+        def meta(*dims, dtype=torch.int32):
+            return torch.empty(dims, dtype=dtype, device="meta")
+
+        encdec = cfg.kind in tfm.ENCDEC_KINDS
+        if shape.phase in ("train", "prefill"):
+            train = shape.phase == "train"
+            if encdec:
+                dec = s // 4 if train else 1
+                specs = {"frames": meta(b, s, cfg.d_model, dtype=act_dtype),
+                         "tokens": meta(b, dec)}
+                if train:
+                    specs["labels"] = meta(b, dec)
+                return specs
+            if cfg.kind == "vlm":
+                p = min(1024, s // 4)
+                specs = {"tokens": meta(b, s - p),
+                         "patch_embeds": meta(b, p, cfg.d_model,
+                                              dtype=act_dtype)}
+                if train:
+                    specs["labels"] = meta(b, s - p)
+                return specs
+            specs = {"tokens": meta(b, s)}
+            if train:
+                specs["labels"] = meta(b, s)
+            return specs
+        # decode: one token against a seq_len-deep cache
+        return {"tokens": meta(b),
+                "cache": self.init_cache(b, s, enc_seq=self.enc_seq(s),
+                                         dtype=act_dtype, abstract=True)}

@@ -103,7 +103,7 @@ def check_kind(cfg: ModelConfig) -> None:
 def forward(params, cfg: ModelConfig, batch, *,
             window: Optional[int] = None, collect_cache: bool = False,
             lengths=None, return_hidden: bool = False,
-            moe_seq_chunk: int = 0, remat: bool = False):
+            moe_seq_chunk: int = 0, remat: bool = False, moe_ep_mesh=None):
     """Full-sequence causal forward.
 
     batch: {"tokens": (B, S)} plus "patch_embeds" (B, P, d) for a vlm
@@ -120,8 +120,10 @@ def forward(params, cfg: ModelConfig, batch, *,
     final-normed hidden states replace the logits. A moe model's aux is
     the sum of its layers' load-balance losses; with `lengths` padding
     positions are routed to no expert, and `moe_seq_chunk` routes over
-    sequence chunks (``moe.moe_apply_chunked``). With `remat` under
-    autograd each layer (hybrid: each round) is checkpointed."""
+    sequence chunks (``moe.moe_apply_chunked``) and `moe_ep_mesh`
+    expert-parallel over that mesh (``distributed.moe_ep``, which takes
+    precedence, as in the reference). With `remat` under autograd each
+    layer (hybrid: each round) is checkpointed."""
     check_kind(cfg)
     params = unstack_layers(params)
     encdec = cfg.kind in ENCDEC_KINDS
@@ -137,7 +139,8 @@ def forward(params, cfg: ModelConfig, batch, *,
                                    lengths, remat)
     else:
         h, parts, aux = _forward_dense(params, cfg, h, window, lengths,
-                                       moe_seq_chunk, collect_cache, remat)
+                                       moe_seq_chunk, collect_cache, remat,
+                                       moe_ep_mesh)
     h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
     if cfg.kind == "vlm" and "patch_embeds" in batch:
         h = h[:, batch["patch_embeds"].shape[1]:]   # the text positions
@@ -267,12 +270,15 @@ def _forward_hybrid(params, cfg, h, window, collect_cache, lengths,
     return h, {"k": ks, "v": vs, "ssm_h": hs, "ssm_conv": convs}
 
 
-def _moe_mlp(bp, cfg, h, a, valid, seq_chunk):
+def _moe_mlp(bp, cfg, h, a, valid, seq_chunk, ep_mesh=None):
     """Residual add of an attention output `a`, then the block's MoE
     layer -> (h', aux)."""
     h = h + a
     x = rms_norm(h, bp["mlp_norm_scale"], cfg.norm_eps)
-    if seq_chunk:
+    if ep_mesh is not None:
+        from repro_torch.distributed.moe_ep import moe_apply_ep
+        y, aux = moe_apply_ep(bp["moe"], x, cfg, ep_mesh, valid=valid)
+    elif seq_chunk:
         y, aux = moe_lib.moe_apply_chunked(bp["moe"], x, cfg, valid=valid,
                                            seq_chunk=seq_chunk)
     else:
@@ -281,7 +287,7 @@ def _moe_mlp(bp, cfg, h, a, valid, seq_chunk):
 
 
 def _forward_dense(params, cfg, h, window, lengths, moe_seq_chunk,
-                   collect_cache=True, remat=False):
+                   collect_cache=True, remat=False, moe_ep_mesh=None):
     valid = None
     if lengths is not None:
         valid = (torch.arange(h.shape[1], device=h.device)[None]
@@ -292,7 +298,8 @@ def _forward_dense(params, cfg, h, window, lengths, moe_seq_chunk,
         a, k, v = attn.attn_prefill(bp["attn"], x, cfg, window=window,
                                     lengths=lengths)
         if cfg.kind == "moe":
-            h, aux = _moe_mlp(bp, cfg, h, a, valid, moe_seq_chunk)
+            h, aux = _moe_mlp(bp, cfg, h, a, valid, moe_seq_chunk,
+                              moe_ep_mesh)
         else:
             h, aux = _add_mlp(bp, cfg, h, a), None
         return h, k, v, aux

@@ -7,7 +7,8 @@ in them — at top level or inside a function — fails. The GPU machine has
 no JAX, so an import there would break the port's entry points. A fresh
 interpreter then imports the port's server and entry modules and must
 leave ``jax`` and ``repro`` out of ``sys.modules``; so must the cluster
-layer, the workload generators, training and its launcher.
+layer, the workload generators, training and its launcher, the serving
+launcher, the meshes and the distributed layer.
 """
 import ast
 import os
@@ -64,7 +65,11 @@ def test_port_sources_found():
                  "src/repro_torch/training/optimizer.py",
                  "src/repro_torch/training/checkpoint.py",
                  "src/repro_torch/training/data.py",
-                 "src/repro_torch/launch/train.py", "chip_smoke.py"):
+                 "src/repro_torch/launch/train.py",
+                 "src/repro_torch/launch/serve.py",
+                 "src/repro_torch/launch/mesh.py",
+                 "src/repro_torch/distributed/sharding.py",
+                 "src/repro_torch/distributed/moe_ep.py", "chip_smoke.py"):
         assert want in names, want
 
 
@@ -98,6 +103,9 @@ def test_server_import_leaves_jax_out():
             "import repro_torch.serving.modality\n"
             "import repro_torch.serving.frontend\n"
             "import repro_torch.training, repro_torch.launch.train\n"
+            "import repro_torch.launch.serve, repro_torch.launch.mesh\n"
+            "import repro_torch.distributed.sharding\n"
+            "import repro_torch.distributed.moe_ep\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\n"
