@@ -243,7 +243,20 @@ order:
    ``make_shardings`` + ``distribute_tensor`` onto the mesh, one at a
    time, each local shard bitwise the leaf. One rank shows no
    collective traffic: a multi-rank expert-parallel run needs more
-   than one card.
+   than one card; (14c) full-width, full-depth llama3-8b (bf16, seed 0)
+   served by ``Model(kv_repeat=1)`` and ``Model(kv_repeat=2)`` (KV heads
+   repeated to 16, the value the dry run's opt 1 picks on a 16-wide
+   model axis) on one set of weights: a 4 x 512 bucketed prefill of 14b's
+   prompts, logits within BF16_TOL; then the engine, contiguous and
+   page 16, the prefill's token and 16 greedy decode steps per request:
+   equal timing and tokens equal up to near-ties judged by
+   ``lossless.engine_margin`` (``audit_flips(engine=)``), the cache
+   holding 16 KV heads; the kv_repeat=2 runs' flash, decode and paged
+   decode launches go into the kernels' line. Phase 3 holds decode and
+   paged decode (page 16, bitwise the contiguous kernel) at that shape
+   (B=8, depth 1024, H 32, KV 16, hd 128) and decode at kv_repeat 4's
+   KV 32. The multi-pod dry run (``repro_torch.launch.dryrun``) runs on
+   the CPU and is not part of this script.
 
 It prints each phase's wall (the host clock from the end of the
 previous phase), the kernels' JSON line (the backwards' bf16 rows
@@ -443,13 +456,14 @@ def check_kernels(torch):
             lambda: kc.decode_attention(q, k, v, lengths),
             lambda: ref.decode_attention_ref(q, k, v, lengths), lib,
             nbytes, 4 * h * hd * ctx, extra=extra)
-        return row, (q, k, v, lengths, ctx, nbytes)
+        return row, (q, k, v, lengths, ctx, nbytes, lib)
 
-    def paged_case(inputs, page, extra=""):
+    def paged_case(inputs, page, extra="", sdpa_rows=False):
         """The paged kernel over a shuffled pool holding decode_case's
         rows: bitwise the contiguous kernel, and against its plain
-        version."""
-        q, k, v, lengths, ctx, nbytes = inputs
+        version; with `sdpa_rows`, beside SDPA over the contiguous rows
+        (no library call reads a page table)."""
+        q, k, v, lengths, ctx, nbytes, lib = inputs
         h, hd = q.shape[1:]
         dense = kc.decode_attention(q, k, v, lengths)
         kp, vp, bt = _paginate(torch, k, v, lengths, page, gen)
@@ -463,8 +477,10 @@ def check_kernels(torch):
             ref.paged_decode_attention_ref(q, kp, vp, bt, lengths),
             lambda: kc.paged_decode_attention(q, kp, vp, bt, lengths),
             lambda: ref.paged_decode_attention_ref(q, kp, vp, bt, lengths),
-            None, nbytes + tab_bytes, 4 * h * hd * ctx,
-            extra=f" (page {page}{extra}, bitwise the contiguous kernel)")
+            lib if sdpa_rows else None, nbytes + tab_bytes, 4 * h * hd * ctx,
+            extra=f" (page {page}{extra}, bitwise the contiguous kernel"
+                  + ("; library: SDPA over the contiguous rows)"
+                     if sdpa_rows else ")"))
 
     # ---- decode: B=8, H=32, KV=8, hd=128, cache depth 1024, ragged ----
     lengths = torch.randint(1, 1024 + 1, (8,), generator=gen).to(torch.int32)
@@ -485,6 +501,14 @@ def check_kernels(torch):
                             extra=" (qwen2-moe: B=8, H=KV=16, hd 128)")
     paged_case(inputs, 16, extra=", qwen2-moe: H=KV=16")
     del inputs
+    # ---- llama3-8b served with Model(kv_repeat=2) (phase 14c): KV 16
+    # (G = 2), hd 128, both layouts; and kv_repeat=4's KV 32 (G = 1) ----
+    _, inputs = decode_case(8, lengths, heads=(32, 16, 128),
+                            extra=" (kv_repeat 2: B=8, H=32, KV=16, hd 128)")
+    paged_case(inputs, 16, extra=", kv_repeat 2: KV=16", sdpa_rows=True)
+    del inputs
+    decode_case(8, lengths, heads=(32, 32, 128),
+                extra=" (kv_repeat 4: B=8, H=KV=32, hd 128)")
     # ---- phase 10's caches, max_seq + k + 1 = 1028 deep: the llama3-8b
     # target and the foreign draft (H 4, KV 2, hd 32) --------------------
     spec_lengths = lengths.clone()
@@ -3409,6 +3433,88 @@ def check_moe_ep(torch, card):
         dist.destroy_process_group()
 
 
+KV_REPEAT_PROMPTS = 4      # rows of phase 11's trace, as 14b's
+KV_REPEAT_DECODE = 16      # greedy decode steps after the prefill's token
+
+
+def check_kv_repeat(torch, card):
+    """14c: full-width, full-depth llama3-8b (bf16, seed 0) served by
+    ``Model(kv_repeat=1)`` and ``Model(kv_repeat=2)`` on one set of
+    weights: a 4 x 512 bucketed prefill of the first KV_REPEAT_PROMPTS
+    prompts of phase 11's trace (logits within BF16_TOL), then both
+    through the engine, contiguous and page 16, the prefill's token and
+    KV_REPEAT_DECODE greedy decode steps per request: equal timing and
+    tokens equal up to near-ties judged along the kv_repeat=1 engine's
+    layout (``audit_flips(engine=)``: ``lossless.engine_margin``). The
+    kv_repeat=2 runs' cache holds 16 KV heads; their launches (flash,
+    decode, paged decode at KV 16), counted from 0 before each run, are
+    returned."""
+    import numpy as np
+    from repro_torch.configs.llama3_8b import CONFIG
+    from repro_torch.models import Model
+    from repro_torch.serving import timing_fingerprint
+
+    t0 = time.perf_counter()
+    base, params = full_width_model(torch, CONFIG)
+    rep = Model(CONFIG, device="cuda", kv_repeat=2)
+    trace = make_trace(12, CONFIG.vocab_size, 0, (64, 513), (32, 65),
+                       0.05)[:KV_REPEAT_PROMPTS]
+    for r in trace:
+        r.output_len = KV_REPEAT_DECODE + 1
+    lengths = [r.prompt_len for r in trace]
+    toks = np.zeros((len(trace), 512), np.int32)
+    for i, r in enumerate(trace):
+        toks[i, :r.prompt_len] = r.prompt_tokens
+    batch = {"tokens": torch.as_tensor(toks).cuda(),
+             "lengths": torch.tensor(lengths, dtype=torch.int32).cuda()}
+    logits = []
+    for m in (base, rep):
+        lg, cache = m.prefill(params, batch, m.init_cache(
+            len(trace), 513, dtype=torch.bfloat16))
+        logits.append(lg.float())
+        if cache["k"].shape[3] != CONFIG.num_kv_heads * m.kv_repeat:
+            fail(f"14c: kv_repeat={m.kv_repeat}'s cache holds "
+                 f"{cache['k'].shape[3]} KV heads")
+        del cache
+    a, b = logits
+    diff = float((a - b).abs().max())
+    if not bool(torch.isfinite(b).all()) or diff > BF16_TOL:
+        fail(f"14c: kv_repeat=2 prefill logits differ by {diff} > "
+             f"{BF16_TOL}")
+    print(f"  14c prefill {len(trace)} x 512 bucket (lengths {lengths}): "
+          f"max |logit diff| kv_repeat 2 vs 1 {diff:.4g} (tol {BF16_TOL}, "
+          f"max |logit| {float(a.abs().max()):.3f})", flush=True)
+    common = dict(num_slots=KV_REPEAT_PROMPTS, max_seq=1024,
+                  cache_dtype=torch.bfloat16,
+                  capacity=KV_REPEAT_PROMPTS * 1024)
+    launches = dict.fromkeys(ATTENTION_KERNELS, 0)
+    for layout, kw in (("contiguous", {}), ("paged16", dict(page_size=16))):
+        outs, engs = {}, {}
+        for m in (base, rep):
+            name = f"14c {layout} kv_repeat={m.kv_repeat}"
+            outs[m.kv_repeat], engs[m.kv_repeat], n, _ = timed_run(
+                torch, m, params, trace, name, **common, **kw)
+            heads = engs[m.kv_repeat].cache["k"].shape[-2]
+            if heads != CONFIG.num_kv_heads * m.kv_repeat:
+                fail(f"{name}: the engine's cache holds {heads} KV heads")
+            if m is rep:
+                for k in launches:
+                    launches[k] += n[k]
+        if timing_fingerprint(outs[1]) != timing_fingerprint(outs[2]):
+            fail(f"14c {layout}: kv_repeat 2 and 1 differ in timing")
+        check_bf16_flips(base, params, outs[1], outs[2],
+                         f"14c {layout} kv_repeat 2 vs 1", engine=engs[1])
+        del engs
+    for k in ATTENTION_KERNELS:
+        if launches[k] <= 0:
+            fail(f"14c: kv_repeat=2 never launched {k}")
+    print(f"  14c kv_repeat=2 launches at KV {CONFIG.num_kv_heads * 2}: "
+          f"{launches}; wall {time.perf_counter() - t0:.1f} s ({card})",
+          flush=True)
+    del base, rep, params
+    return launches
+
+
 def _leaf_items(tree, path=()):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -3588,6 +3694,8 @@ def main() -> None:
     add(check_serve_launcher(torch, card))
     torch.cuda.empty_cache()
     check_moe_ep(torch, card)
+    torch.cuda.empty_cache()
+    add(check_kv_repeat(torch, card))
     torch.cuda.empty_cache()
     lap("14")
 

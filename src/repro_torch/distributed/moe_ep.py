@@ -20,6 +20,7 @@ counted over all experts or over one rank's.
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -103,7 +104,23 @@ def moe_apply_ep(p, x: torch.Tensor, cfg: ModelConfig, mesh,
     leaf's gradient over the data axes (as data parallelism does) gives
     the global loss's gradient of every replicated leaf and of the
     rank's own experts. Backward runs one all-reduce over "model" for
-    each of the experts' inputs and routing weights."""
+    each of the experts' inputs and routing weights.
+
+    ``DTensor`` inputs (the multi-pod dry run's, placed by the sharding
+    rules) are brought to that layout first: x and valid split over the
+    data axes and whole over "model", the router and shared experts
+    gathered, the expert stacks split over "model" by E (their rows
+    [e0, e0 + E/tp), padded with zero experts, as here); y and aux come
+    back as DTensors laid out like x and replicated."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        return _moe_apply_ep_dtensor(p, x, cfg, mesh, valid)
+    return _moe_apply_ep(p, x, cfg, mesh, valid)
+
+
+def _moe_apply_ep(p, x, cfg, mesh, valid=None, experts=None):
+    """`moe_apply_ep` on local tensors; `experts`: this rank's expert
+    stacks already cut (None: cut from p's full ones)."""
     m = cfg.moe
     E, k = m.num_experts, m.top_k
     names = list(mesh.mesh_dim_names)
@@ -143,8 +160,8 @@ def moe_apply_ep(p, x: torch.Tensor, cfg: ModelConfig, mesh,
     buf[dest] = xe[token_idx]
     buf = buf.view(e_local + 1, cap + 1, d)[:e_local, :cap]
 
-    ex = {n: _local_experts(p["experts"][n], e0, e_local)
-          for n in ("gate", "up", "down")}
+    ex = experts or {n: _local_experts(p["experts"][n], e0, e_local)
+                     for n in ("gate", "up", "down")}
     h = F.silu(torch.bmm(buf, ex["gate"])) * torch.bmm(buf, ex["up"])
     out = torch.bmm(h, ex["down"])                          # (E_loc, C, d)
 
@@ -161,3 +178,41 @@ def moe_apply_ep(p, x: torch.Tensor, cfg: ModelConfig, mesh,
     if "shared" in p:
         y = y + mlp_apply(p["shared"], xt)
     return y.reshape(b, s, d), aux
+
+
+def _moe_apply_ep_dtensor(p, x, cfg, mesh, valid):
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    names = list(mesh.mesh_dim_names)
+    # the rows over the data axes, dropping the outer ones where their
+    # product does not divide the batch (the sharding rules' fall-back)
+    split = [names.index(a) for a in data_axes(mesh)]
+    while split and x.shape[0] % math.prod(mesh.size(i) for i in split):
+        split = split[1:]
+    row = [Shard(0) if i in split else Replicate()
+           for i in range(len(names))]
+    whole = [Replicate()] * len(names)
+
+    def local(t, placements):
+        if not isinstance(t, DTensor):      # a plain tensor is replicated
+            t = DTensor.from_local(t, mesh, whole, run_check=False)
+        return t.redistribute(mesh, placements).to_local()
+
+    xl = local(x, row)
+    vl = None if valid is None else local(valid, row)
+    pl = {"router": local(p["router"], whole)}
+    if "shared" in p:
+        pl["shared"] = {k: local(v, whole) for k, v in p["shared"].items()}
+    by_e = [Shard(0) if n == model_axis(mesh) else Replicate()
+            for n in names]
+    tp = mesh.size(names.index(model_axis(mesh)))
+    e_local = -(-cfg.moe.num_experts // tp)
+    experts = {}
+    for n in ("gate", "up", "down"):
+        w = local(p["experts"][n], by_e)      # torch.chunk's split of E
+        if w.shape[0] < e_local:
+            w = torch.cat([w, w.new_zeros((e_local - w.shape[0],
+                                           *w.shape[1:]))])
+        experts[n] = w
+    y, aux = _moe_apply_ep(pl, xl, cfg, mesh, vl, experts)
+    return (DTensor.from_local(y, mesh, row, run_check=False),
+            DTensor.from_local(aux, mesh, whole, run_check=False))

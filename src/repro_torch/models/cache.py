@@ -15,6 +15,9 @@ Layouts are the reference's (``src/repro/models/cache.py``):
   cross_k/v     (L, B, S_enc, KV, hd)      enc-dec cross-attention memory
   enc_length    (B,) int32                 valid encoder positions
 
+With ``kv_repeat`` r every k/v leaf (cross planes included, as the
+reference's) holds KV * r heads.
+
 A hybrid cache holds k/v for each application of the shared attention
 block (L = num_layers // hybrid_attn_every) beside the Mamba-2 leaves
 (L = its Mamba-2 layers, rounds x per_round in the reference's order).
@@ -56,7 +59,7 @@ def _cache_device(device, abstract: bool) -> torch.device:
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                enc_seq: int = 0, dtype=torch.bfloat16, device="cuda",
-               abstract: bool = False):
+               abstract: bool = False, kv_repeat: int = 1):
     """Contiguous decode cache, zero-filled. Attention layers (or shared
     attention applications) get k/v; Mamba layers get the scan state
     ssm_h in f32 and the conv buffer ssm_conv in `dtype`, in the module
@@ -65,9 +68,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
     `abstract` every leaf is on the ``meta`` device."""
     dev = _cache_device(device, abstract)
     cache = {"length": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    kv = cfg.num_kv_heads * kv_repeat
     n = _num_attn_applications(cfg)
     if n:
-        shape = (n, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+        shape = (n, batch, max_seq, kv, cfg.head_dim)
         cache["k"] = torch.zeros(shape, dtype=dtype, device=dev)
         cache["v"] = torch.zeros(shape, dtype=dtype, device=dev)
     n_ssm = len(cfg.ssm_layer_ids())
@@ -83,8 +87,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
         cache["ssm_conv"] = torch.zeros((n_ssm, batch, s.d_conv - 1,
                                          conv_dim), dtype=dtype, device=dev)
     if cfg.kind in ("encdec", "audio"):
-        shape = (cfg.num_layers, batch, enc_seq, cfg.num_kv_heads,
-                 cfg.head_dim)
+        shape = (cfg.num_layers, batch, enc_seq, kv, cfg.head_dim)
         cache["cross_k"] = torch.zeros(shape, dtype=dtype, device=dev)
         cache["cross_v"] = torch.zeros(shape, dtype=dtype, device=dev)
         cache["enc_length"] = torch.zeros((batch,), dtype=torch.int32,
@@ -102,7 +105,8 @@ def supports_physical_paging(cfg: ModelConfig) -> bool:
 
 def init_paged_cache(cfg: ModelConfig, batch: int, num_pages: int,
                      page_size: int, max_seq: int, *, dtype=torch.bfloat16,
-                     device="cuda", abstract: bool = False):
+                     device="cuda", abstract: bool = False,
+                     kv_repeat: int = 1):
     """Physically paged decode cache; sentinel table entries equal
     `num_pages` so unallocated writes drop and gathers clamp. With
     `abstract` every leaf is on the ``meta`` device."""
@@ -111,7 +115,8 @@ def init_paged_cache(cfg: ModelConfig, batch: int, num_pages: int,
     dev = _cache_device(device, abstract)
     n = _num_attn_applications(cfg)
     max_pages = -(-max_seq // page_size)
-    shape = (n, num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
+    shape = (n, num_pages, page_size, cfg.num_kv_heads * kv_repeat,
+             cfg.head_dim)
     return {
         "length": torch.zeros((batch,), dtype=torch.int32, device=dev),
         "k": torch.zeros(shape, dtype=dtype, device=dev),

@@ -4,14 +4,18 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.layout import keep_layout, rows_like
+
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
-    """RMSNorm computed in f32 and cast back to x's dtype."""
+    """RMSNorm computed in f32 and cast back to x's dtype (laid out as x,
+    ``keep_layout``)."""
     dt = x.dtype
-    x = x.float()
-    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
-    return ((x * torch.rsqrt(var + eps)) * scale.float()).to(dt)
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    return keep_layout(((xf * torch.rsqrt(var + eps)) * scale.float())
+                       .to(dt), x)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
@@ -41,7 +45,9 @@ def mlp_apply(p, x: torch.Tensor) -> torch.Tensor:
 
 
 def embed_apply(p, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens]
+    """Rows of the embedding table, laid out like the tokens
+    (``layout.rows_like``)."""
+    return rows_like(p["table"][tokens], tokens)
 
 
 def unembed(params, h: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,12 @@ caches hold `enc_seq(max_seq)` positions of encoder memory:
 Params are the reference's stacked tree as a dict of tensors
 (``repro_torch.bridge``). Caches are updated in place.
 
+With ``kv_repeat`` r > 1 (KV-head replication up to the tensor-parallel
+degree, the reference's serving option) the serving entry points repeat
+each k/v head r times after the projections and the caches hold
+KV * r heads; ``forward_train`` and ``loss`` do not take it, as the
+reference's do not.
+
 With ``moe_ep_mesh`` (a ``DeviceMesh`` with a ``model`` axis) a moe
 model's prefill and training forwards run expert-parallel
 (``distributed.moe_ep.moe_apply_ep``): each rank passes its data shard
@@ -50,7 +56,7 @@ def _argmax_ids(logits: torch.Tensor) -> torch.Tensor:
 class Model:
     def __init__(self, cfg: ModelConfig, *, window: Optional[int] = None,
                  moe_seq_chunk: int = 0, remat: bool = False,
-                 moe_ep_mesh=None, device="cuda"):
+                 moe_ep_mesh=None, kv_repeat: int = 1, device="cuda"):
         tfm.check_kind(cfg)
         self.cfg = cfg
         self.window = window
@@ -62,6 +68,8 @@ class Model:
         # expert-parallel dispatch over this mesh's model axis
         # (distributed/moe_ep.py); None = moe_apply on every rank
         self.moe_ep_mesh = moe_ep_mesh
+        # KV-head replication; 1 = the paper-faithful baseline
+        self.kv_repeat = kv_repeat
         self.device = resolve_device(device)
 
     # ------------------------------------------------------------------ init
@@ -131,7 +139,8 @@ class Model:
                    dtype=torch.float32, abstract: bool = False):
         return cache_lib.init_cache(self.cfg, batch, max_seq,
                                     enc_seq=enc_seq, dtype=dtype,
-                                    device=self.device, abstract=abstract)
+                                    device=self.device, abstract=abstract,
+                                    kv_repeat=self.kv_repeat)
 
     def supports_physical_paging(self) -> bool:
         return cache_lib.supports_physical_paging(self.cfg)
@@ -141,7 +150,7 @@ class Model:
                          abstract: bool = False):
         return cache_lib.init_paged_cache(
             self.cfg, batch, num_pages, page_size, max_seq, dtype=dtype,
-            device=self.device, abstract=abstract)
+            device=self.device, abstract=abstract, kv_repeat=self.kv_repeat)
 
     def prefill(self, params, batch, cache):
         """Run the prompt, fill the cache, return last-token logits.
@@ -172,7 +181,8 @@ class Model:
                                   collect_cache=True, lengths=ctx_lengths,
                                   return_hidden=True,
                                   moe_seq_chunk=self.moe_seq_chunk,
-                                  moe_ep_mesh=self.moe_ep_mesh)
+                                  moe_ep_mesh=self.moe_ep_mesh,
+                                  kv_repeat=self.kv_repeat)
         for key in ("k", "v"):
             for i, part in enumerate(parts.get(key, ())):
                 cache[key][i, :, :part.shape[1]] = part
@@ -196,7 +206,7 @@ class Model:
     def decode_step(self, params, tokens, cache):
         """tokens (B,) int32 -> (logits (B, V), cache')."""
         return tfm.decode_step(params, self.cfg, tokens, cache,
-                               window=self.window)
+                               window=self.window, kv_repeat=self.kv_repeat)
 
     def decode_tokens(self, params, tokens, cache):
         """Fused greedy decode: tokens (B,) -> (next_ids (B,) int32, cache'),
@@ -232,13 +242,14 @@ class Model:
         """Speculative verify: tokens (B, T) int32 -> (logits (B, T, V),
         cache'), bitwise T sequential `decode_step` calls."""
         return tfm.verify_step(params, self.cfg, tokens, cache,
-                               window=self.window)
+                               window=self.window, kv_repeat=self.kv_repeat)
 
     def propose_step(self, params, tokens, cache, k: int):
         """Draft-side greedy proposal: tokens (B,) int32 -> (proposals
         (B, k+1) int32, cache')."""
         return tfm.propose_step(params, self.cfg, tokens, cache, k,
-                                window=self.window)
+                                window=self.window,
+                                kv_repeat=self.kv_repeat)
 
     # ------------------------------------------------------------- dry-run IO
     def input_specs(self, shape: ShapeConfig, *, act_dtype=torch.bfloat16):

@@ -137,8 +137,7 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig,
     # is written by exactly one slot
     token_idx = torch.arange(t, device=x.device).repeat_interleave(k)
     dest = flat_e.long() * (cap + 1) + slot_pos.long()
-    buf = torch.zeros(((E + 1) * (cap + 1), d), dtype=x.dtype,
-                      device=x.device)
+    buf = xt.new_zeros(((E + 1) * (cap + 1), d))
     buf[dest] = xt[token_idx]
     buf = buf.view(E + 1, cap + 1, d)[:E, :cap]                 # (E, C, d)
 

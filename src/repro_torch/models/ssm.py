@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import rms_norm
+from repro_torch.models.layout import split_dim
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -162,7 +163,7 @@ def mamba2_apply(p, x: torch.Tensor, cfg: ModelConfig, *, lengths=None,
         conv_prev = _gather_last(xbc, eff, p["conv_w"].shape[0] - 1)
     xbc_c, _ = _causal_conv(xbc, p["conv_w"])
     xbc_c = F.silu(xbc_c + p["conv_b"])
-    x_in = xbc_c[..., :di].reshape(b, slen, nh, s.headdim)
+    x_in = split_dim(xbc_c[..., :di], 2, (nh, s.headdim))
     B = xbc_c[..., di:di + s.d_state]
     C = xbc_c[..., di + s.d_state:]
     dt = softplus(dt + p["dt_bias"])

@@ -33,6 +33,11 @@ indexing back-propagates a zero tensor the size of the whole stack for
 every layer, while unbind's backward stacks the layers' gradients once.
 The decode paths index the stacks directly.
 
+``kv_repeat`` (the reference's KV-head replication) reaches the
+self-attention of the dense, vlm, moe and hybrid forwards and decode
+steps; the encoder-decoders and the training forward (which passes 1)
+do not take it, as the reference's do not.
+
 ``verify_step`` and ``propose_step`` (speculative decoding) are loops
 over ``decode_step`` with no host sync inside, as the reference's scans
 are, so a verify window is bitwise the same decode steps taken one by
@@ -49,6 +54,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import embed_apply, mlp_apply, rms_norm, unembed
+from repro_torch.models.layout import keep_layout
 
 
 def layer_params(tree, i: int):
@@ -80,13 +86,19 @@ def unstack_layers(params):
 
 
 def remat_call(fn, remat: bool, *args):
-    """One layer (or hybrid round); with `remat` under autograd through
-    non-reentrant ``torch.utils.checkpoint``, so only its inputs are kept
-    and it is recomputed on the backward pass."""
+    """One layer (or hybrid round) fn(h, ...) -> h' or (h', ...); with
+    `remat` under autograd through non-reentrant
+    ``torch.utils.checkpoint``, so only its inputs are kept and it is
+    recomputed on the backward pass. h' keeps h's layout
+    (``layout.keep_layout``)."""
     if remat and torch.is_grad_enabled():
-        return torch.utils.checkpoint.checkpoint(fn, *args,
-                                                 use_reentrant=False)
-    return fn(*args)
+        out = torch.utils.checkpoint.checkpoint(fn, *args,
+                                                use_reentrant=False)
+    else:
+        out = fn(*args)
+    if isinstance(out, tuple):
+        return (keep_layout(out[0], args[0]), *out[1:])
+    return keep_layout(out, args[0])
 
 
 PORTED_KINDS = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec", "audio")
@@ -103,7 +115,8 @@ def check_kind(cfg: ModelConfig) -> None:
 def forward(params, cfg: ModelConfig, batch, *,
             window: Optional[int] = None, collect_cache: bool = False,
             lengths=None, return_hidden: bool = False,
-            moe_seq_chunk: int = 0, remat: bool = False, moe_ep_mesh=None):
+            moe_seq_chunk: int = 0, remat: bool = False, moe_ep_mesh=None,
+            kv_repeat: int = 1):
     """Full-sequence causal forward.
 
     batch: {"tokens": (B, S)} plus "patch_embeds" (B, P, d) for a vlm
@@ -136,11 +149,11 @@ def forward(params, cfg: ModelConfig, batch, *,
                                 remat)
     elif cfg.kind == "hybrid":
         h, parts = _forward_hybrid(params, cfg, h, window, collect_cache,
-                                   lengths, remat)
+                                   lengths, remat, kv_repeat)
     else:
         h, parts, aux = _forward_dense(params, cfg, h, window, lengths,
                                        moe_seq_chunk, collect_cache, remat,
-                                       moe_ep_mesh)
+                                       moe_ep_mesh, kv_repeat)
     h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
     if cfg.kind == "vlm" and "patch_embeds" in batch:
         h = h[:, batch["patch_embeds"].shape[1]:]   # the text positions
@@ -237,7 +250,7 @@ def _add_mlp(bp, cfg, h, a):
 
 
 def _forward_hybrid(params, cfg, h, window, collect_cache, lengths,
-                    remat=False):
+                    remat=False, kv_repeat=1):
     shared = params["shared"]
     rounds, per = _rounds(params)
 
@@ -255,7 +268,7 @@ def _forward_hybrid(params, cfg, h, window, collect_cache, lengths,
             h = h + y
         x = rms_norm(h, shared["attn_norm_scale"], cfg.norm_eps)
         a, k, v = attn.attn_prefill(shared["attn"], x, cfg, window=window,
-                                    lengths=lengths)
+                                    lengths=lengths, kv_repeat=kv_repeat)
         return _add_mlp(shared, cfg, h, a), (k, v, hs, convs)
 
     ks, vs, hs, convs = [], [], [], []
@@ -287,7 +300,8 @@ def _moe_mlp(bp, cfg, h, a, valid, seq_chunk, ep_mesh=None):
 
 
 def _forward_dense(params, cfg, h, window, lengths, moe_seq_chunk,
-                   collect_cache=True, remat=False, moe_ep_mesh=None):
+                   collect_cache=True, remat=False, moe_ep_mesh=None,
+                   kv_repeat=1):
     valid = None
     if lengths is not None:
         valid = (torch.arange(h.shape[1], device=h.device)[None]
@@ -296,7 +310,7 @@ def _forward_dense(params, cfg, h, window, lengths, moe_seq_chunk,
     def layer(h, bp):
         x = rms_norm(h, bp["attn_norm_scale"], cfg.norm_eps)
         a, k, v = attn.attn_prefill(bp["attn"], x, cfg, window=window,
-                                    lengths=lengths)
+                                    lengths=lengths, kv_repeat=kv_repeat)
         if cfg.kind == "moe":
             h, aux = _moe_mlp(bp, cfg, h, a, valid, moe_seq_chunk,
                               moe_ep_mesh)
@@ -318,7 +332,7 @@ def _forward_dense(params, cfg, h, window, lengths, moe_seq_chunk,
 
 
 def decode_step(params, cfg: ModelConfig, tokens, cache, *,
-                window: Optional[int] = None):
+                window: Optional[int] = None, kv_repeat: int = 1):
     """One decode iteration: tokens (B,) int32 -> (logits (B, V), cache').
 
     The cache's k/v (or ssm_h/ssm_conv, or all four for hybrid) are
@@ -334,9 +348,9 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, *,
     elif cfg.kind in ENCDEC_KINDS:
         h = _decode_encdec(params, cfg, h, cache, window)
     elif cfg.kind == "hybrid":
-        h = _decode_hybrid(params, cfg, h, cache, window)
+        h = _decode_hybrid(params, cfg, h, cache, window, kv_repeat)
     else:
-        h = _decode_dense(params, cfg, h, cache, window)
+        h = _decode_dense(params, cfg, h, cache, window, kv_repeat)
     h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
     return unembed(params, h), dict(cache, length=lengths + 1)
 
@@ -350,11 +364,11 @@ def _decode_ssm(params, cfg, h, cache):
             {"h": cache["ssm_h"][i], "conv": cache["ssm_conv"][i]}, cfg)
         cache["ssm_h"][i] = st["h"]
         cache["ssm_conv"][i] = st["conv"]
-        h = h + y
+        h = keep_layout(h + y, h)
     return h
 
 
-def _decode_hybrid(params, cfg, h, cache, window):
+def _decode_hybrid(params, cfg, h, cache, window, kv_repeat=1):
     shared = params["shared"]
     rounds, per = _rounds(params)
     lengths = cache["length"]
@@ -372,8 +386,9 @@ def _decode_hybrid(params, cfg, h, cache, window):
             h = h + y
         x = rms_norm(h, shared["attn_norm_scale"], cfg.norm_eps)
         a, _, _ = attn.attn_decode(shared["attn"], x, cache["k"][r],
-                                   cache["v"][r], lengths, cfg, window=window)
-        h = _add_mlp(shared, cfg, h, a)
+                                   cache["v"][r], lengths, cfg, window=window,
+                                   kv_repeat=kv_repeat)
+        h = keep_layout(_add_mlp(shared, cfg, h, a), h)
     return h
 
 
@@ -393,11 +408,11 @@ def _decode_encdec(params, cfg, h, cache, window):
         c = attn.cross_attn_apply(bp["cross_attn"], x[:, None],
                                   cache["cross_k"][i], cache["cross_v"][i],
                                   enc_lengths, cfg)
-        h = _add_mlp(bp, cfg, h, c[:, 0])
+        h = keep_layout(_add_mlp(bp, cfg, h, c[:, 0]), h)
     return h
 
 
-def _decode_dense(params, cfg, h, cache, window):
+def _decode_dense(params, cfg, h, cache, window, kv_repeat=1):
     lengths = cache["length"]
     paged = "block_tables" in cache
     plan = None
@@ -411,21 +426,22 @@ def _decode_dense(params, cfg, h, cache, window):
         if paged:
             a, _, _ = attn.attn_decode_paged(
                 bp["attn"], x, kc, vc, cache["block_tables"], lengths, cfg,
-                window=window, plan=plan)
+                window=window, plan=plan, kv_repeat=kv_repeat)
         else:
             a, _, _ = attn.attn_decode(bp["attn"], x, kc, vc, lengths, cfg,
-                                       window=window)
+                                       window=window, kv_repeat=kv_repeat)
         if cfg.kind == "moe":
             # every slot is routed, inactive ones included (reference)
-            h, _ = _moe_mlp(bp, cfg, h[:, None], a[:, None], None, 0)
-            h = h[:, 0]
+            h2, _ = _moe_mlp(bp, cfg, h[:, None], a[:, None], None, 0)
+            h2 = h2[:, 0]
         else:
-            h = _add_mlp(bp, cfg, h, a)
+            h2 = _add_mlp(bp, cfg, h, a)
+        h = keep_layout(h2, h)
     return h
 
 
 def verify_step(params, cfg: ModelConfig, tokens, cache, *,
-                window: Optional[int] = None):
+                window: Optional[int] = None, kv_repeat: int = 1):
     """Verify a T-token proposal window: tokens (B, T) int32 ->
     (logits (B, T, V), cache') with the cache's length advanced by T.
 
@@ -438,13 +454,13 @@ def verify_step(params, cfg: ModelConfig, tokens, cache, *,
     out = []
     for j in range(tokens.shape[1]):
         logits, cache = decode_step(params, cfg, tokens[:, j], cache,
-                                    window=window)
+                                    window=window, kv_repeat=kv_repeat)
         out.append(logits)
     return torch.stack(out, dim=1), cache
 
 
 def propose_step(params, cfg: ModelConfig, tokens, cache, k: int, *,
-                 window: Optional[int] = None):
+                 window: Optional[int] = None, kv_repeat: int = 1):
     """Greedy k+1 draft tokens: step 0 consumes `tokens` (B,), each later
     step its own argmax (first max wins on ties, as jnp.argmax), with no
     host sync. The (k+1)-th step keeps the draft cache's invariant
@@ -453,7 +469,8 @@ def propose_step(params, cfg: ModelConfig, tokens, cache, k: int, *,
     out = []
     tok = tokens
     for _ in range(k + 1):
-        logits, cache = decode_step(params, cfg, tok, cache, window=window)
+        logits, cache = decode_step(params, cfg, tok, cache, window=window,
+                                    kv_repeat=kv_repeat)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
         out.append(tok)
     return torch.stack(out, dim=1), cache

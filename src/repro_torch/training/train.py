@@ -10,6 +10,7 @@ trains on the card. Decode has no backward and raises in grad mode.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
@@ -39,6 +40,27 @@ def value_and_grad(model: Model, params, batch):
         torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)])
 
 
+def _microbatches(v, m: int):
+    """v (B, ...) -> (m, B / m, ...): microbatch i is rows [i B / m,
+    (i + 1) B / m), as the reference's reshape. A ``DTensor`` batch (the
+    multi-pod dry run's) split over the data axes is gathered, reshaped
+    and split again over its second dim, so that every microbatch stays
+    split over the data axes (dropping the outer ones where its size does
+    not divide): one all-gather of the batch a step."""
+    if type(v) is torch.Tensor:
+        return v.reshape(m, -1, *v.shape[1:])
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, pl = v.device_mesh, list(v.placements)
+    split = [i for i, p in enumerate(pl) if p == Shard(0)]
+    v = v.redistribute(mesh, [Replicate() if i in split else p
+                              for i, p in enumerate(pl)])
+    y = v.reshape(m, -1, *v.shape[1:])
+    while split and y.shape[1] % math.prod(mesh.size(i) for i in split):
+        split = split[1:]
+    return y.redistribute(mesh, [Shard(1) if i in split else p
+                                 for i, p in enumerate(y.placements)])
+
+
 def build_train_step(model: Model, opt_cfg: OptimizerConfig, *,
                      remat: bool = True, microbatches: int = 1) -> Callable:
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
@@ -57,11 +79,11 @@ def build_train_step(model: Model, opt_cfg: OptimizerConfig, *,
         if microbatches <= 1:
             loss, grads = value_and_grad(model, params, batch)
         else:
-            micro = {k: v.reshape(microbatches, -1, *v.shape[1:])
+            micro = {k: _microbatches(v, microbatches)
                      for k, v in batch.items()}
             loss = torch.zeros((), dtype=torch.float32,
                                device=next(leaves(params)).device)
-            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            acc = [torch.zeros_like(p, dtype=torch.float32)
                    for p in leaves(params)]
             for i in range(microbatches):
                 l_i, g_i = value_and_grad(

@@ -8,7 +8,8 @@ no JAX, so an import there would break the port's entry points. A fresh
 interpreter then imports the port's server and entry modules and must
 leave ``jax`` and ``repro`` out of ``sys.modules``; so must the cluster
 layer, the workload generators, training and its launcher, the serving
-launcher, the meshes and the distributed layer.
+launcher, the meshes, the distributed layer and the dry run with its
+HLO parser.
 """
 import ast
 import os
@@ -68,6 +69,8 @@ def test_port_sources_found():
                  "src/repro_torch/launch/train.py",
                  "src/repro_torch/launch/serve.py",
                  "src/repro_torch/launch/mesh.py",
+                 "src/repro_torch/launch/dryrun.py",
+                 "src/repro_torch/launch/hlo_stats.py",
                  "src/repro_torch/distributed/sharding.py",
                  "src/repro_torch/distributed/moe_ep.py", "chip_smoke.py"):
         assert want in names, want
@@ -106,6 +109,7 @@ def test_server_import_leaves_jax_out():
             "import repro_torch.launch.serve, repro_torch.launch.mesh\n"
             "import repro_torch.distributed.sharding\n"
             "import repro_torch.distributed.moe_ep\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.hlo_stats\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\n"
