@@ -46,6 +46,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import cache as cache_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import unembed
+from repro_torch.obs import spans as spans_lib
 
 
 def _argmax_ids(logits: torch.Tensor) -> torch.Tensor:
@@ -165,7 +166,14 @@ class Model:
         enc_length replaced. Writes cast to the cache's dtypes. The
         cache's length counts a vlm's P prefix positions; the logits are
         those of each row's last text position.
-        Returns (logits (B, V), cache')."""
+        Returns (logits (B, V), cache').
+
+        Called with a span open in a log on this thread (the engine's
+        ``engine.prefill_call``), it writes ``model.prefill`` there, the
+        enqueue of the whole call, with ``model.cache_fill``, the copies
+        of the layers' planes into the cache, inside it."""
+        log = spans_lib.active()
+        span = spans_lib.begin(log, "model.prefill")
         cfg = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
@@ -183,12 +191,14 @@ class Model:
                                   moe_seq_chunk=self.moe_seq_chunk,
                                   moe_ep_mesh=self.moe_ep_mesh,
                                   kv_repeat=self.kv_repeat)
+        fill = spans_lib.begin(log, "model.cache_fill")
         for key in ("k", "v"):
             for i, part in enumerate(parts.get(key, ())):
                 cache[key][i, :, :part.shape[1]] = part
         for key in ("ssm_h", "ssm_conv"):
             for i, part in enumerate(parts.get(key, ())):
                 cache[key][i] = part
+        spans_lib.end(log, fill)
         if cfg.kind in tfm.ENCDEC_KINDS:
             enc_len = batch.get("enc_lengths")
             if enc_len is None:
@@ -201,7 +211,9 @@ class Model:
         # last valid position per row; the unembed runs on those rows only
         last = torch.clamp(lengths.long() - 1, 0, s - 1)
         h_last = h[torch.arange(b, device=h.device), last]
-        return unembed(params, h_last), cache
+        logits = unembed(params, h_last)
+        spans_lib.end(log, span)
+        return logits, cache
 
     def decode_step(self, params, tokens, cache):
         """tokens (B,) int32 -> (logits (B, V), cache')."""

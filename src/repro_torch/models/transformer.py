@@ -38,6 +38,12 @@ self-attention of the dense, vlm, moe and hybrid forwards and decode
 steps; the encoder-decoders and the training forward (which passes 1)
 do not take it, as the reference's do not.
 
+While a ``torch.profiler`` session records, the dense and moe layers of
+the prefill forward and of ``decode_step`` open profiler ranges
+``repro_torch.norm``, ``repro_torch.attention`` and ``repro_torch.mlp``
+around their sublayers (``obs.spans.sublayer_ranges``), so a trace puts
+each launch down to its sublayer; otherwise they cost one check a call.
+
 ``verify_step`` and ``propose_step`` (speculative decoding) are loops
 over ``decode_step`` with no host sync inside, as the reference's scans
 are, so a verify window is bitwise the same decode steps taken one by
@@ -55,6 +61,7 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import embed_apply, mlp_apply, rms_norm, unembed
 from repro_torch.models.layout import keep_layout
+from repro_torch.obs.spans import sublayer_ranges, unranged
 
 
 def layer_params(tree, i: int):
@@ -242,11 +249,14 @@ def _rounds(params):
     return len(scales), len(scales[0])
 
 
-def _add_mlp(bp, cfg, h, a):
-    """Residual add of an attention output `a`, then the block's MLP."""
-    h = h + a
-    x = rms_norm(h, bp["mlp_norm_scale"], cfg.norm_eps)
-    return h + mlp_apply(bp["mlp"], x)
+def _add_mlp(bp, cfg, h, a, ranges=unranged):
+    """Residual add of an attention output `a`, then the block's MLP
+    (`ranges`: ``sublayer_ranges()``'s)."""
+    with ranges("norm"):
+        h = h + a
+        x = rms_norm(h, bp["mlp_norm_scale"], cfg.norm_eps)
+    with ranges("mlp"):
+        return h + mlp_apply(bp["mlp"], x)
 
 
 def _forward_hybrid(params, cfg, h, window, collect_cache, lengths,
@@ -306,16 +316,20 @@ def _forward_dense(params, cfg, h, window, lengths, moe_seq_chunk,
     if lengths is not None:
         valid = (torch.arange(h.shape[1], device=h.device)[None]
                  < lengths[:, None])
+    ranges = sublayer_ranges()
 
     def layer(h, bp):
-        x = rms_norm(h, bp["attn_norm_scale"], cfg.norm_eps)
-        a, k, v = attn.attn_prefill(bp["attn"], x, cfg, window=window,
-                                    lengths=lengths, kv_repeat=kv_repeat)
+        with ranges("norm"):
+            x = rms_norm(h, bp["attn_norm_scale"], cfg.norm_eps)
+        with ranges("attention"):
+            a, k, v = attn.attn_prefill(bp["attn"], x, cfg, window=window,
+                                        lengths=lengths, kv_repeat=kv_repeat)
         if cfg.kind == "moe":
-            h, aux = _moe_mlp(bp, cfg, h, a, valid, moe_seq_chunk,
-                              moe_ep_mesh)
+            with ranges("mlp"):
+                h, aux = _moe_mlp(bp, cfg, h, a, valid, moe_seq_chunk,
+                                  moe_ep_mesh)
         else:
-            h, aux = _add_mlp(bp, cfg, h, a), None
+            h, aux = _add_mlp(bp, cfg, h, a, ranges), None
         return h, k, v, aux
 
     ks, vs, auxs = [], [], []
@@ -419,23 +433,28 @@ def _decode_dense(params, cfg, h, cache, window, kv_repeat=1):
     if paged:
         plan = attn.paged_write_plan(cache["block_tables"], lengths,
                                      cache["k"].shape[1], cache["k"].shape[2])
+    ranges = sublayer_ranges()
     for i in range(cfg.num_layers):
         bp = layer_params(params["blocks"], i)
         kc, vc = cache["k"][i], cache["v"][i]
-        x = rms_norm(h, bp["attn_norm_scale"], cfg.norm_eps)
-        if paged:
-            a, _, _ = attn.attn_decode_paged(
-                bp["attn"], x, kc, vc, cache["block_tables"], lengths, cfg,
-                window=window, plan=plan, kv_repeat=kv_repeat)
-        else:
-            a, _, _ = attn.attn_decode(bp["attn"], x, kc, vc, lengths, cfg,
-                                       window=window, kv_repeat=kv_repeat)
+        with ranges("norm"):
+            x = rms_norm(h, bp["attn_norm_scale"], cfg.norm_eps)
+        with ranges("attention"):
+            if paged:
+                a, _, _ = attn.attn_decode_paged(
+                    bp["attn"], x, kc, vc, cache["block_tables"], lengths,
+                    cfg, window=window, plan=plan, kv_repeat=kv_repeat)
+            else:
+                a, _, _ = attn.attn_decode(bp["attn"], x, kc, vc, lengths,
+                                           cfg, window=window,
+                                           kv_repeat=kv_repeat)
         if cfg.kind == "moe":
             # every slot is routed, inactive ones included (reference)
-            h2, _ = _moe_mlp(bp, cfg, h[:, None], a[:, None], None, 0)
+            with ranges("mlp"):
+                h2, _ = _moe_mlp(bp, cfg, h[:, None], a[:, None], None, 0)
             h2 = h2[:, 0]
         else:
-            h2 = _add_mlp(bp, cfg, h, a)
+            h2 = _add_mlp(bp, cfg, h, a, ranges)
         h = keep_layout(h2, h)
     return h
 

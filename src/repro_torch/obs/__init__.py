@@ -32,12 +32,29 @@ Consumers:
                                     formalized into the same registry the
                                     benchmarks read
 
+Beside the hooks, which are instants on the backend's clock, the engine
+and the model write spans and counters into a bounded span log
+(`obs.spans.SpanLog`, the engine's `spans`): the step and its schedule,
+each prefill call split into staging, cache set-up, the forward's
+enqueue (with the cache fill), the slot write and the first-token
+readback, the decode blocks, swaps and the clock's sleeps, with the
+prefill's rows, padded rows, tokens and padded tokens counted. The
+spans carry start and end on the engine's clock (wall mode: monotonic
+seconds since the log's epoch), so they explain where a step's time
+went; while a `torch.profiler` session records they also open profiler
+ranges, anchored so that the log lines up with the device trace.
+`register_backend_gauges` exports the counters, and
+`TraceRecorder.to_chrome_trace` draws the spans beside the lifecycle
+instants (the server's `GET /trace`).
+
 The default observer is None everywhere — instrumentation points guard
 with a single `is not None` test, so an unobserved run executes the exact
 pre-observability code path. The verification spine is differential
 (tests/test_obs.py): an instrumented run is bit-for-bit identical —
-tokens, timestamps, preemptions, QoE — to an uninstrumented one, and QoE
-recomputed purely from the emitted trace equals the engine-reported QoE.
+tokens, timestamps, preemptions, QoE — to an uninstrumented one, and on
+the virtual clock QoE recomputed purely from the emitted trace equals the
+engine-reported QoE (on the wall clock the emit of a staged first token
+carries the time after its readback: `obs.observer`).
 
 Legacy `event_sink` lifecycle callables remain supported as a thin
 `EventSinkAdapter` shim (deprecated; new code should implement Observer).
@@ -60,6 +77,7 @@ from repro_torch.obs.metrics import (
     register_backend_gauges,
 )
 from repro_torch.obs.profiling import ProfilingObserver, profile_engine
+from repro_torch.obs.spans import Span, SpanLog
 
 __all__ = [
     "Observer", "MultiObserver", "ScopedObserver", "EventSinkAdapter",
@@ -68,4 +86,5 @@ __all__ = [
     "MetricsRegistry", "MetricsObserver", "Counter", "Gauge", "Histogram",
     "parse_prometheus", "register_backend_gauges",
     "ProfilingObserver", "profile_engine",
+    "Span", "SpanLog",
 ]

@@ -565,6 +565,21 @@ class MetricsObserver(Observer):
         self._tick(t)
 
 
+#: the engine's span-log counters (``obs.spans``) and the gauges that
+#: export them: (counter, gauge, help)
+SPAN_COUNTER_GAUGES = (
+    ("prefill.calls", "engine_prefill_calls_total",
+     "prefill calls: one per bucket group or eager call"),
+    ("prefill.rows", "engine_prefill_rows_total", "real rows prefilled"),
+    ("prefill.row_slots", "engine_prefill_row_slots_total",
+     "rows prefilled, row-bucket padding included"),
+    ("prefill.tokens", "engine_prefill_tokens_total",
+     "valid tokens prefilled"),
+    ("prefill.token_slots", "engine_prefill_token_slots_total",
+     "token slots prefilled: rows x length bucket"),
+)
+
+
 def register_backend_gauges(registry: MetricsRegistry, backend,
                             replica: Optional[int] = None) -> None:
     """Bind live-state gauges onto a backend.
@@ -573,12 +588,19 @@ def register_backend_gauges(registry: MetricsRegistry, backend,
     straight off `backend.kv` (the manager's peak tracking, readable from
     outside); clock and live-set size work for any SteppableBackend.
     Bound gauges survive `backend.reset()` because `KVSlotManager.reset()`
-    clears the same object in place."""
+    clears the same object in place. A backend with a span log
+    (``backend.spans``, the engine's) also exports its prefill counters
+    (SPAN_COUNTER_GAUGES), totals since its last reset."""
     labels = {} if replica is None else {"replica": str(replica)}
     names = () if replica is None else ("replica",)
 
     def bind(name, help, fn):
         registry.gauge(name, help, names).set_fn(fn, **labels)
+
+    if getattr(backend, "spans", None) is not None:
+        for counter, gauge, help in SPAN_COUNTER_GAUGES:
+            bind(gauge, help,
+                 lambda c=counter: backend.spans.counters.get(c, 0))
 
     bind("backend_clock_seconds", "backend virtual clock",
          lambda: backend.now)

@@ -42,7 +42,11 @@ class Observer:
       * hooks must not mutate the request or any engine state — the
         differential oracle (tests/test_obs.py) asserts instrumented runs
         are bit-for-bit identical to uninstrumented ones;
-      * ``t`` is the virtual clock of the emitting backend;
+      * ``t`` is the clock of the emitting backend (virtual seconds, or
+        a wall engine's ``wall_now()``); on the wall clock the engine's
+        ``emit`` of a staged first token, and a ``finish`` it causes,
+        carry the time the host holds the token, after its readback,
+        while ``req.emit_times`` keep the staging tick;
       * ``replica`` is keyword-only and already stamped when the event
         crossed a cluster boundary (-1 means single-node / fleet-level).
     """

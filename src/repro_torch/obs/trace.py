@@ -25,19 +25,27 @@ Export formats:
                               Perfetto / chrome://tracing: one process
                               per replica (pid 0 = fleet), one thread per
                               request, an "X" span from arrival to
-                              finish/shed, instants for everything else
+                              finish/shed, instants for everything else;
+                              given the engines' span logs
+                              (``obs.spans``), their spans as "X" events
+                              on a host thread of each replica's process
 """
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Dict, List, Optional
+from typing import Dict, List, Mapping, Optional, Union
 
 import numpy as np
 
 from repro_torch.core.pricing import request_weight
 from repro_torch.core.qoe import QoESpec, qoe_exact
 from repro_torch.obs.observer import Observer
+from repro_torch.obs.spans import SpanLog
+
+#: the thread id of the span logs' host thread in a Chrome trace (rids
+#: take the others; the harnesses' warm-up rids are small negatives)
+HOST_TID = -(2 ** 31)
 
 
 @dataclasses.dataclass(slots=True)
@@ -234,14 +242,20 @@ class TraceRecorder(Observer):
         with open(path) as f:
             return TraceRecorder.from_jsonl(f.read())
 
-    def to_chrome_trace(self) -> Dict:
+    def to_chrome_trace(
+            self, span_logs: Union[SpanLog, Mapping[int, SpanLog],
+                                   None] = None) -> Dict:
         """Chrome trace-event format (Perfetto / chrome://tracing).
 
         pid = replica + 1 (pid 0 is the fleet control plane), tid = rid
         (tid 0 for request-less events). Each request gets one "X"
         complete span from arrival to finish/shed; every event is also an
         "i" instant. Events are sorted by timestamp, so per-(pid, tid)
-        timestamps are monotone."""
+        timestamps are monotone. `span_logs` (one engine's log, or a
+        replica -> log mapping; a lone log is the single node's, replica
+        -1) adds each log's spans as "X" events, cat "span", on thread
+        HOST_TID of the replica's process: the log's clock is the one the
+        engine stamps its events with."""
         instants, spans = [], []
         arrivals: Dict[int, TraceEvent] = {}
         pids, tids = set(), set()
@@ -265,31 +279,36 @@ class TraceRecorder(Observer):
                     "pid": pid, "tid": tid,
                     "args": {"outcome": ev.kind, **start.data},
                 })
+        if isinstance(span_logs, SpanLog):
+            span_logs = {-1: span_logs}
+        for replica, log in sorted((span_logs or {}).items()):
+            pid = replica + 1
+            pids.add(pid)
+            tids.add((pid, HOST_TID))
+            for sp in sorted(log.spans(), key=lambda x: (x.start, x.seq)):
+                spans.append({
+                    "name": sp.name, "ph": "X", "cat": "span",
+                    "ts": sp.start * 1e6, "dur": (sp.end - sp.start) * 1e6,
+                    "pid": pid, "tid": HOST_TID,
+                    "args": {"seq": sp.seq, "parent": sp.parent,
+                             **json.loads(json.dumps(sp.payload or {},
+                                                     default=_jsonable))},
+                })
         meta = [{"name": "process_name", "ph": "M", "pid": pid, "ts": 0,
                  "args": {"name": "fleet" if pid == 0
                           else f"replica {pid - 1}"}}
                 for pid in sorted(pids)]
         meta += [{"name": "thread_name", "ph": "M", "pid": pid, "tid": tid,
                   "ts": 0, "args": {"name": "control" if tid == 0
+                                    else "host" if tid == HOST_TID
                                     else f"req {tid}"}}
                  for pid, tid in sorted(tids)]
         return {"traceEvents": meta + spans + instants,
                 "displayTimeUnit": "ms"}
 
-    def save_chrome_trace(self, path: str) -> None:
+    def save_chrome_trace(self, path: str, span_logs=None) -> None:
         with open(path, "w") as f:
-            json.dump(self.to_chrome_trace(), f)
-
-
-def merge_traces(*event_lists: List[TraceEvent]) -> List[TraceEvent]:
-    """Merge per-source traces (replicas, server connections, pump vs.
-    loop thread) into one timestamp-sorted stream. The sort is stable, so
-    equal-timestamp events keep their per-source relative order."""
-    merged: List[TraceEvent] = []
-    for evs in event_lists:
-        merged.extend(evs)
-    merged.sort(key=lambda e: e.t)
-    return merged
+            json.dump(self.to_chrome_trace(span_logs), f)
 
 
 def qoe_from_trace(events: List[TraceEvent]) -> Dict[int, float]:
@@ -297,9 +316,14 @@ def qoe_from_trace(events: List[TraceEvent]) -> Dict[int, float]:
 
     Uses only "arrival" (contract snapshot) and "emit" (delivery
     timestamps) events, pushed through the same `qoe_exact` as
-    `Request.final_qoe()`. Because emit events carry the identical
-    floats the backend appended to `emit_times`, the result matches the
-    backend-reported QoE exactly — the trace-reconciliation oracle.
+    `Request.final_qoe()`. On the virtual clock emit events carry the
+    identical floats the backend appended to `emit_times`, so the result
+    matches the backend-reported QoE exactly — the trace-reconciliation
+    oracle. On a wall engine's clock the emit event of a staged first
+    token carries the time the host held the token, after its readback,
+    which is later than its `emit_times` entry (the staging tick): the
+    result is then the QoE of delivery as the host saw it, and may read
+    below `final_qoe()`.
 
     Robust to event *file order*: wall-clock runs interleave replicas and
     server connections, so a merged trace may deliver a request's events

@@ -19,6 +19,9 @@ real time. The moving parts:
                         (accepted / token / preempt / finish / shed /
                         cancel), mapping StreamHandle events 1:1.
       GET  /metrics     Prometheus text from the live MetricsRegistry.
+      GET  /trace       the TraceRecorder's events as a Chrome trace
+                        (Perfetto), with the engine's span log, if it
+                        has one, drawn on a host thread.
       GET  /healthz     liveness + clock mode + live-connection count.
 
 * **Backpressure.** Each connection owns a bounded `asyncio.Queue`; a
@@ -315,6 +318,11 @@ class ServingServer:
             elif method == "GET" and path == "/metrics":
                 await self._respond(writer, 200, self.registry.to_prometheus(),
                                     ctype="text/plain; version=0.0.4")
+            elif method == "GET" and path == "/trace":
+                # a long run's trace takes a while to build: off the loop
+                body = await asyncio.get_running_loop().run_in_executor(
+                    None, self._chrome_trace)
+                await self._respond(writer, 200, body)
             elif method == "POST" and path == "/v1/stream":
                 await self._stream(reader, writer, body)
             else:
@@ -327,6 +335,10 @@ class ServingServer:
                 writer.close()
             except Exception:
                 pass
+
+    def _chrome_trace(self) -> str:
+        return json.dumps(self.trace.to_chrome_trace(
+            getattr(self.backend, "spans", None)))
 
     async def _respond(self, writer: asyncio.StreamWriter, status: int,
                        body, ctype: str = "application/json") -> None:

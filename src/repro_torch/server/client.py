@@ -42,7 +42,8 @@ def _split_head(data: bytes) -> Tuple[int, Dict[str, str], bytes]:
 
 def fetch(host: str, port: int, path: str,
           timeout: float = 10.0) -> Tuple[int, str]:
-    """Blocking GET; returns (status, body_text). For /metrics, /healthz."""
+    """Blocking GET; returns (status, body_text). For /metrics, /healthz,
+    /trace."""
     with socket.create_connection((host, port), timeout=timeout) as s:
         s.sendall(_request_bytes("GET", path, host))
         data = b""

@@ -39,6 +39,14 @@ pending, running or swapped request (a server's client disconnect), and
 ``wall_now()`` reads the engine's clock for arrivals stamped from
 outside.
 
+Spans (``repro_torch.obs.spans``): the engine always writes its
+``SpanLog``, ``spans``, on its own clock, cleared by ``reset()``: ``engine.step`` over its
+``engine.schedule``; ``engine.prefill_call`` per bucket group (see
+``BucketedPrefill``) or eager call, with its parts; ``engine.decode_block``
+per decode entry point (payload j, rows); ``engine.swap_out`` and
+``engine.swap_in`` (payload rid); ``engine.tick_sleep`` when ``_tick``
+sleeps; and the prefill counters.
+
 On a CUDA device the model's attention runs on the hand-written kernels
 (kernels/csrc); on the CPU on their plain versions.
 """
@@ -60,6 +68,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import cache as cache_lib
 from repro_torch.models.model import Model
 from repro_torch.obs.observer import EventSinkAdapter, compose
+from repro_torch.obs.spans import NO_SPANS, SpanLog
 from repro_torch.serving.kv_manager import KVSlotManager
 from repro_torch.serving.simulator import SimResult
 from repro_torch.serving.speculative import (DraftProposer,
@@ -176,10 +185,23 @@ class BucketedPrefill:
     device, and returns (first_ids (N,), cache rows) for one fused
     `_write_slots` scatter. `shapes_seen` records the padded shapes run.
     An encoder-decoder's rows also take frames, padded to
-    (rows, enc_seq, d) f32 with zeros for a row that has none."""
+    (rows, enc_seq, d) f32 with zeros for a row that has none.
+
+    Into its span log `spans` (the engine's; by default ``NO_SPANS``,
+    which keeps nothing), each bucket group writes one
+    ``engine.prefill_call`` span, payload rids, valid lengths, padded
+    rows and bucket, over its parts in call order: ``prefill.stage``
+    (host padding and H2D), ``prefill.cache_init``, the model's
+    ``model.prefill``, ``prefill.write`` (the slot scatter) and
+    ``prefill.readback`` (the first tokens' copy to the host); and the
+    counters ``prefill.calls``, ``prefill.rows`` (real rows),
+    ``prefill.row_slots`` (padded rows), ``prefill.tokens`` (valid
+    tokens) and ``prefill.token_slots`` (rows x bucket) grow by the
+    call's shape."""
 
     def __init__(self, model: Model, cache_seq: int, cache_dtype, *,
-                 max_seq: int, bucket_min: int = 16):
+                 max_seq: int, bucket_min: int = 16,
+                 spans: SpanLog = NO_SPANS):
         self.model = model
         self.cache_seq = cache_seq
         self.cache_dtype = cache_dtype
@@ -194,6 +216,7 @@ class BucketedPrefill:
         self.buckets.append(min(b, cache_seq))
         self.shapes_seen = set()        # (rows, len_bucket) signatures
         self.on_compile = None          # optional fn(key) on a new shape
+        self.spans = spans
 
     def note_shape(self, key) -> None:
         if key not in self.shapes_seen:
@@ -215,9 +238,12 @@ class BucketedPrefill:
         return b
 
     def _call(self, params, tokens, lengths, frames):
+        sp = self.spans
+        tok = sp.begin("prefill.cache_init")
         cache = self.model.init_cache(tokens.shape[0], self.cache_seq,
                                       enc_seq=self.enc_seq,
                                       dtype=self.cache_dtype)
+        sp.end(tok)
         batch = {"tokens": tokens, "lengths": lengths}
         if self.enc_seq:
             batch["frames"] = frames
@@ -225,14 +251,16 @@ class BucketedPrefill:
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
     def prefill_into(self, params, cache, slots, toks_list,
-                     frames_list=None, *, need_first=True, write=None):
+                     frames_list=None, *, need_first=True, write=None,
+                     rids=None):
         """Grouped flush: prefill every (slot, tokens) pair and scatter the
         rows into `cache` — one padded multi-row call and one fused write
         per bucket group. Returns (cache', first_ids (N,) int32 aligned
         with the inputs, host sync rounds, bucket groups dispatched).
         `write` overrides the slot-row scatter (the physically paged
         engine's page-pool committer; rows map to slots through the same
-        padded id array, sentinel = num_slots)."""
+        padded id array, sentinel = num_slots). `rids`, aligned with the
+        inputs, label the call spans."""
         if write is None:
             write = _write_slots
         groups: dict = {}
@@ -241,26 +269,50 @@ class BucketedPrefill:
         first_out = np.zeros(len(toks_list), np.int32)
         oob = cache["length"].shape[0]          # row-pad scatter sentinel
         syncs = 0
+        sp = self.spans
         for bucket in sorted(groups):
             idxs = groups[bucket]
+            toks = [toks_list[i] for i in idxs]
+            call = self._begin_call(
+                tuple(map(rids.__getitem__, idxs)) if rids else (),
+                tuple(map(len, toks)), bucket)
             first, src = self.run(
-                params, [toks_list[i] for i in idxs],
+                params, toks,
                 [frames_list[i] for i in idxs] if frames_list else None)
             rows = src["length"].shape[0]
             pad = np.full((rows,), oob, np.int32)
             pad[: len(idxs)] = [slots[i] for i in idxs]
+            tok = sp.begin("prefill.write")
             cache = write(cache, src, pad)
+            sp.end(tok)
             if need_first:
+                tok = sp.begin("prefill.readback")
                 first = first.cpu().numpy()
+                sp.end(tok)
                 syncs += 1
                 for j, i in enumerate(idxs):
                     first_out[i] = first[j]
+            sp.end(call)
         return cache, first_out, syncs, len(groups)
+
+    def _begin_call(self, rids: tuple, lengths: tuple, bucket: int) -> int:
+        """Open an ``engine.prefill_call`` span and count its shape."""
+        sp = self.spans
+        real = len(lengths)
+        rows = self.row_bucket(real)
+        sp.count(("prefill.calls", 1), ("prefill.rows", real),
+                 ("prefill.row_slots", rows), ("prefill.tokens", sum(lengths)),
+                 ("prefill.token_slots", rows * bucket))
+        return sp.begin("engine.prefill_call",
+                        {"rids": rids, "lengths": lengths, "rows": rows,
+                         "bucket": bucket})
 
     def run(self, params, toks_list, frames_list=None):
         """Prefill one same-bucket group. toks_list: per-request token
         arrays; frames_list: per-request (enc_seq, d) frames or None;
         returns (first_ids (rows,) on the device, padded rows)."""
+        sp = self.spans
+        tok = sp.begin("prefill.stage")
         rows = self.row_bucket(len(toks_list))
         seq = self.bucket(max(len(t) for t in toks_list))
         tokens = np.zeros((rows, seq), np.int32)
@@ -277,8 +329,10 @@ class BucketedPrefill:
                 frames[i] = frames_row(f, self.enc_seq, d)
             frames = frames.to(dev)
         self.note_shape((rows, seq))
-        return self._call(params, torch.as_tensor(tokens).to(dev),
-                          torch.as_tensor(lengths).to(dev), frames)
+        tokens = torch.as_tensor(tokens).to(dev)
+        lengths = torch.as_tensor(lengths).to(dev)
+        sp.end(tok)
+        return self._call(params, tokens, lengths, frames)
 
 
 def frames_row(f, enc_seq: int, d: int) -> torch.Tensor:
@@ -421,9 +475,11 @@ class ServingEngine:
         self._decode_tok = model.decode_tokens
         self._decode_multi = model.decode_multi
         self._decode_persist = model.decode_persistent
+        self.spans = SpanLog(
+            clock=None if clock == "wall" else (lambda: self.now))
         self._prefill = BucketedPrefill(
             model, self._cache_seq, cache_dtype, max_seq=max_seq,
-            bucket_min=self.hotpath.bucket_min)
+            bucket_min=self.hotpath.bucket_min, spans=self.spans)
         # MoE capacity depends on the padded token count (and on the rows
         # batched beside a prompt), so MoE keeps the eager exact-length path
         self._prefill_bucketable = model.cfg.kind != "moe"
@@ -486,6 +542,7 @@ class ServingEngine:
         self._kv_version_seen = -1
         self._bt_host = None
         self._wall0 = time.monotonic()
+        self.spans.reset(self._wall0)
 
     # ------------------------------------------------------------ observers
     @property
@@ -535,6 +592,9 @@ class ServingEngine:
             self.host_syncs += n
             if self.obs is not None:
                 self.obs.sync(self.now, n)
+
+    def _begin_decode(self, j: int, rows: int) -> int:
+        return self.spans.begin("engine.decode_block", {"j": j, "rows": rows})
 
     def _dispatch(self, kind: str, n: int = 1) -> None:
         if n:
@@ -678,7 +738,9 @@ class ServingEngine:
             deadline = self.now + seconds
             w = time.monotonic() - self._wall0
             if deadline > w:
+                tok = self.spans.begin("engine.tick_sleep")
                 time.sleep(deadline - w)
+                self.spans.end(tok)
                 w = time.monotonic() - self._wall0
             self.now = w
 
@@ -766,11 +828,16 @@ class ServingEngine:
                 self.total_tokens += 1
         return _StagedPrefill(r, slot, prefix, emit_t, self._frames_of(r))
 
-    def _flush_prefills(self, staged: List[_StagedPrefill]) -> None:
+    def _flush_prefills(self, staged: List[_StagedPrefill]
+                        ) -> Optional[float]:
         """Run every staged admission's device work; first-token emissions
-        finalize in admission order."""
+        finalize in admission order. On the wall clock the `emit` hook of
+        a staged first token gets the time the host holds the token,
+        after its readback, which this returns (None on the virtual
+        clock, where the hook gets the staging tick); `emit_times` and
+        the fluid state keep the staging tick."""
         if not staged:
-            return
+            return None
         writer = None
         if self.physical_pages:
             self._refresh_block_tables()
@@ -778,7 +845,8 @@ class ServingEngine:
         slots = [rec.slot for rec in staged]
         self.cache, first, syncs, n_groups = self._prefill.prefill_into(
             self.params, self.cache, slots, [rec.toks for rec in staged],
-            [rec.frames for rec in staged], write=writer)
+            [rec.frames for rec in staged], write=writer,
+            rids=[rec.req.rid for rec in staged])
         self._sync(syncs)
         self._dispatch("prefill", n_groups)
         self._dispatch("write", n_groups)
@@ -792,11 +860,14 @@ class ServingEngine:
             self._dispatch("draft_prefill", n_draft)
             self._dispatch("write", n_draft)
         obs = self.obs
+        t_held = self.wall_now() if self.clock != "virtual" else None
         for i, rec in enumerate(staged):
             if rec.emit_t is not None:
                 rec.req.output_tokens.append(int(first[i]))
                 if obs is not None:
-                    obs.emit(rec.req, rec.emit_t, 1)
+                    obs.emit(rec.req, rec.emit_t if t_held is None
+                             else t_held, 1)
+        return t_held
 
     def _prefill_request(self, r: Request) -> None:
         """One request, one prefill, one slot write. With bucketed prefill
@@ -804,27 +875,34 @@ class ServingEngine:
         the eager exact-length path (the benchmark baseline)."""
         if self.hotpath.prefill_buckets and self._prefill_bucketable:
             rec = self._stage_prefill(r)
-            self._flush_prefills([rec])
+            t_held = self._flush_prefills([rec])
             if rec.emit_t is not None:
                 tok = r.output_tokens[-1]
                 if (r.generated >= r.output_len
                         or (self.eos_id >= 0 and tok == self.eos_id)):
-                    self._finish(r)
+                    self._finish(r, t_held)
             return
         toks = self._prompt_tokens(r)
+        sp = self.spans
+        call = self._prefill._begin_call((r.rid,), (len(toks),), len(toks))
+        tok = sp.begin("prefill.cache_init")
         kv_dtype = (self.cache["k"].dtype if "k" in self.cache
                     else self.cache["ssm_conv"].dtype)
         enc_seq = self.model.enc_seq(self.max_seq)
         one = self.model.init_cache(1, self._cache_seq, enc_seq=enc_seq,
                                     dtype=kv_dtype)
+        sp.end(tok)
+        tok = sp.begin("prefill.stage")
         dev = self.model.device
         batch = {"tokens": torch.as_tensor(toks)[None].to(dev)}
         if enc_seq:
             batch["frames"] = frames_row(getattr(r, "frames", None), enc_seq,
                                          self.model.cfg.d_model)[None].to(dev)
+        sp.end(tok)
         logits, one = self.model.prefill(self.params, batch, one)
         self._prefill.note_shape((1, len(toks)))
         self._dispatch("prefill")
+        tok = sp.begin("prefill.write")
         slot = self.kv.allocate(r)
         if self.physical_pages:
             if r.generated == 0:
@@ -842,6 +920,7 @@ class ServingEngine:
         else:
             self.cache = _write_slot(self.cache, one, slot)
         self._dispatch("write")
+        sp.end(tok)
         self.slot_req[slot] = r
         if self.spec_k:
             # the draft holds committed[:-1]: a fresh request's first token
@@ -854,9 +933,12 @@ class ServingEngine:
         if self.obs is not None:
             self.obs.prefill(r, self.now, len(toks))
         if r.generated == 0:
-            tok = int(torch.argmax(logits[0]))
+            tok = sp.begin("prefill.readback")
+            first = int(torch.argmax(logits[0]))
+            sp.end(tok)
             self._sync()
-            self._emit(r, tok)
+            self._emit(r, first)
+        sp.end(call)
 
     # ---------------------------------------------------------------- emit
     def _emit(self, r: Request, tok: int) -> None:
@@ -901,7 +983,10 @@ class ServingEngine:
             self._finish(r)
         return len(emitted)
 
-    def _finish(self, r: Request) -> None:
+    def _finish(self, r: Request, t_held: Optional[float] = None) -> None:
+        """`t_held`: the time the `emit` hook of the request's last token
+        got (`_flush_prefills`), which its `finish` hook does not precede;
+        `finish_time` keeps the engine's clock."""
         r.state = ReqState.FINISHED
         r.finish_time = self.now
         self.sched.on_request_finish(r)
@@ -909,7 +994,8 @@ class ServingEngine:
         self.kv.release(r)
         self.slot_req.pop(slot, None)
         if self.obs is not None:
-            self.obs.finish(r, self.now)
+            self.obs.finish(r, self.now if t_held is None
+                            else max(self.now, t_held))
 
     # ------------------------------------------------------------ preempt
     def _preempt(self, r: Request) -> None:
@@ -917,6 +1003,8 @@ class ServingEngine:
         self.preemptions += 1
         slot = r.engine_slot
         if self.preemption_mode == "swap":
+            sp = self.spans
+            tok = sp.begin("engine.swap_out", {"rid": r.rid})
             self._dispatch("read")
             if self.physical_pages:
                 # gather the victim's pages into one contiguous host row —
@@ -933,6 +1021,7 @@ class ServingEngine:
             self._sync()
             draft_slice = self.draft.park(slot) if self.spec_k else None
             self.kv.swap_out(r, host_slice, draft_slice)
+            sp.end(tok)
             r.state = ReqState.SWAPPED
             self._tick(self.lat.swap_latency(
                 r.prefill_cursor or r.context_len))
@@ -947,6 +1036,7 @@ class ServingEngine:
             self.obs.preempt(r, self.now, self.preemption_mode)
 
     def _swap_in(self, r: Request) -> None:
+        tok = self.spans.begin("engine.swap_in", {"rid": r.rid})
         host_slice = self.kv.swap_in(r)
         draft_slice = self.kv.swap_in_draft(r)
         slot = self.kv.allocate(r, tokens=(r.prefill_cursor or None))
@@ -966,6 +1056,7 @@ class ServingEngine:
         if draft_slice is not None:
             self.draft.restore(slot, draft_slice)
             self._dispatch("write")
+        self.spans.end(tok)
         self.slot_req[slot] = r
         r.state = ReqState.RUNNING
         self._tick(self.lat.swap_latency(r.prefill_cursor or r.context_len))
@@ -1090,6 +1181,7 @@ class ServingEngine:
         roll the caches back)."""
         k = self.spec_k
         dev = self.model.device
+        span = self._begin_decode(s, len(active))
         # the block pins both caches' lengths itself, round by round
         W, G, A, self.cache, self.draft.cache = self._spec_block(
             self.params, self.draft.params, torch.as_tensor(tokens).to(dev),
@@ -1103,6 +1195,7 @@ class ServingEngine:
         G = host[n_w:2 * n_w].reshape(G.shape)
         A = host[2 * n_w:].reshape(A.shape)
         self._sync()
+        self.spans.end(span)
         self.multi_step_blocks += 1
         self.persistent_blocks += 1
         items = list(active.items())
@@ -1145,6 +1238,7 @@ class ServingEngine:
         # below the target's
         draft_lengths = np.maximum(lengths - 1, 0).astype(np.int32)
         dev = self.model.device
+        span = self._begin_decode(1, len(active))
         if self.hotpath.fused_sampling:
             self.draft.cache = cache_lib.with_lengths(self.draft.cache,
                                                       draft_lengths)
@@ -1180,6 +1274,7 @@ class ServingEngine:
                 while a < k and d[a] == g[a]:
                     a += 1
                 accepted[s] = a
+        self.spans.end(span)
         step_accepted = self._commit_round(list(active.items()), window,
                                            greedy, accepted)
         if self.obs is not None:
@@ -1270,12 +1365,14 @@ class ServingEngine:
 
     def _multi_step_decode(self, active, tokens, total_ctx: int,
                            j: int) -> int:
+        span = self._begin_decode(j, len(active))
         ids, self.cache = self._decode_multi(
             self.params, torch.as_tensor(tokens).to(self.model.device),
             self.cache, j)
         self._dispatch("decode_multi")
         ids = ids.cpu().numpy()                 # ONE sync for j iterations
         self._sync()
+        self.spans.end(span)
         self.multi_step_blocks += 1
         committed = self._commit_block(active, ids, total_ctx, j)
         self.multi_step_iters += committed
@@ -1286,12 +1383,14 @@ class ServingEngine:
 
     def _persistent_decode(self, active, tokens, total_ctx: int,
                            j: int) -> int:
+        span = self._begin_decode(j, len(active))
         ids, self.cache, steps = self._decode_persist(
             self.params, torch.as_tensor(tokens).to(self.model.device),
             self.cache, j, j_cap=self.hotpath.multi_step)
         self._dispatch("decode_persistent")
         ids = ids.cpu().numpy()                 # ONE sync for the block
         self._sync()
+        self.spans.end(span)
         self.multi_step_blocks += 1
         self.persistent_blocks += 1
         committed = self._commit_block(active, ids, total_ctx, j)
@@ -1337,11 +1436,22 @@ class ServingEngine:
                 self.now = max(self.now, time.monotonic() - self._wall0)
             else:
                 self.now = max(self.now, nxt)
+        sp = self.spans
+        tok = sp.begin("engine.step")
+        try:
+            return self._iterate(until)
+        finally:
+            sp.end(tok)
+
+    def _iterate(self, until: Optional[float]) -> bool:
+        """`step()`'s work once the clock has reached an arrival."""
         self._admit_arrivals()
         if not self.live:
             return True
 
+        tok = self.spans.begin("engine.schedule")
         target = self.sched.schedule(self.now, self.live, self.fluid)
+        self.spans.end(tok)
         target_ids = {id(r) for r in target}
 
         n_preempted = 0
@@ -1420,6 +1530,7 @@ class ServingEngine:
                             if r.is_live:
                                 self.kv.trim_pages(r)
                 else:
+                    span = self._begin_decode(1, len(active))
                     dev_tokens = torch.as_tensor(tokens).to(self.model.device)
                     if self.hotpath.fused_sampling:
                         ids, self.cache = self._decode_tok(
@@ -1436,6 +1547,7 @@ class ServingEngine:
                                                          total_ctx))
                         nxt = torch.argmax(logits, dim=-1).cpu().numpy()
                     self._sync()
+                    self.spans.end(span)
                     for s, r in list(active.items()):
                         self._emit(r, int(nxt[s]))
         else:

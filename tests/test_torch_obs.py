@@ -11,6 +11,10 @@ the two registries the same samples. Each trace recomputes its own
 run's QoE exactly (``qoe_from_trace``), and a trace survives its JSONL
 round trip.
 
+The port's registry also holds its span-log counters, which the
+reference lacks: they are checked against the engine's log and then left
+out of the comparison.
+
 Also the port's own contract: attaching observers changes nothing the
 engine computes, the legacy ``event_sink`` composes with an installed
 observer through ``_rewire_obs`` (which keeps the scheduler on the same
@@ -46,7 +50,8 @@ from repro_torch.obs import (MetricsObserver, MetricsRegistry,
                              ProfilingObserver, TraceRecorder, compose,
                              parse_prometheus, qoe_from_trace,
                              register_backend_gauges)
-from repro_torch.obs.metrics import registry_samples_dict
+from repro_torch.obs.metrics import (SPAN_COUNTER_GAUGES,
+                                     registry_samples_dict)
 from repro_torch.serving import Request, ServingEngine
 
 torch.set_num_threads(1)
@@ -137,9 +142,18 @@ def test_trace_events_match_reference(observed):
         assert a == b, (i, a, b)
 
 
+def _port_only(tsam, eng):
+    """The samples of the port's span-log counters, which the reference
+    lacks, taken out of `tsam` after checking them against the engine's
+    log."""
+    for counter, gauge, _help in SPAN_COUNTER_GAUGES:
+        assert tsam.pop((gauge, ())) == eng.spans.counters[counter], gauge
+    return tsam
+
+
 def test_metrics_samples_match_reference(observed):
     o = observed
-    tsam = registry_samples_dict(o["treg"])
+    tsam = _port_only(registry_samples_dict(o["treg"]), o["teng"])
     jsam = j_samples(o["jreg"])
     assert tsam.keys() == jsam.keys()
     for k, v in jsam.items():
@@ -246,7 +260,8 @@ def test_spec_engine_observed_matches_reference(models):
     assert len(tev) == len(jev)
     for i, (a, b) in enumerate(zip(tev, jev)):
         assert a == b, (i, a, b)
-    tsam, jsam = registry_samples_dict(treg), j_samples(jreg)
+    tsam, jsam = _port_only(registry_samples_dict(treg), teng), \
+        j_samples(jreg)
     assert tsam.keys() == jsam.keys()
     for k, v in jsam.items():
         assert tsam[k] == v, k
