@@ -4,12 +4,14 @@ Each wrapper checks device, dtype, shape, contiguity and alignment,
 allocates the output with ``torch.empty``, launches on PyTorch's current
 stream, raises if the launch returned a CUDA error, and adds one to its
 entry in ``launches`` — there and nowhere else, so a run can show that it
-went through the kernel. ``variant_launches`` counts the flash launches,
-forward and backward, by the body they ran (tensor-core for bf16,
-CUDA-core for f32), and the scan backward's by its body (Mamba-1's for
-an A per (channel, state), Mamba-2's for an A per channel);
-``flash_plan`` picks the tensor-core body's query-tile height from the
-grid's size.
+went through the kernel. A launch recorded into a CUDA graph runs
+nothing until the graph replays: ``recorded_launches`` takes it back out
+and ``add_launches`` counts it on each replay. ``variant_launches``
+counts the flash launches, forward and backward, by the body they ran
+(tensor-core for bf16, CUDA-core for f32), and the scan backward's by
+its body (Mamba-1's for an A per (channel, state), Mamba-2's for an A
+per channel); ``flash_plan`` picks the tensor-core body's query-tile
+height from the grid's size.
 
 The decode wrappers plan their split-KV launch on the host with
 ``decode_plan`` (from the cache's capacity, never from ``lengths``, which
@@ -36,6 +38,7 @@ lost without an error. Training goes through ``kernels/ops.py``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -101,6 +104,29 @@ def reset_launches() -> None:
     for counts in (launches, variant_launches):
         for k in counts:
             counts[k] = 0
+
+
+@contextlib.contextmanager
+def recorded_launches():
+    """Wrap a CUDA graph's capture: the launches made inside are recorded,
+    not run, so they leave ``launches`` and ``variant_launches`` as they
+    were and fill the dict yielded (key: launches) for ``add_launches``."""
+    before = (dict(launches), dict(variant_launches))
+    rec: Dict[str, int] = {}
+    try:
+        yield rec
+    finally:
+        for counts, old in zip((launches, variant_launches), before):
+            for k, n in counts.items():
+                if n != old[k]:
+                    rec[k] = n - old[k]
+                    counts[k] = old[k]
+
+
+def add_launches(rec: Dict[str, int]) -> None:
+    """Count one replay of a graph whose capture recorded `rec`."""
+    for k, n in rec.items():
+        (variant_launches if k in variant_launches else launches)[k] += n
 
 
 def _fn(name: str):

@@ -34,15 +34,25 @@ model's prefill and training forwards run expert-parallel
 (``distributed.moe_ep.moe_apply_ep``): each rank passes its data shard
 of the batch and holds the full params, of which it runs its E/tp
 experts. Decode keeps ``moe_apply``, as the reference's does.
+
+A prefill into a cache its caller holds (``hold_cache``: the bucketed
+path's, one per row count, zeroed before each call) runs, on CUDA and
+for the kinds in ``GRAPH_KINDS``, from a CUDA graph of its shape: the
+first call of a shape runs eagerly on a side stream and captures the
+same forward; every later one copies tokens and lengths into the graph's
+static inputs and replays it (``Model.prefill``).
 """
 from __future__ import annotations
 
+import gc
+import weakref
 from typing import Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels import cuda as cuda_kernels
 from repro_torch.models import cache as cache_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import unembed
@@ -52,6 +62,46 @@ from repro_torch.obs import spans as spans_lib
 def _argmax_ids(logits: torch.Tensor) -> torch.Tensor:
     # first max wins on ties, as jnp.argmax
     return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+#: kinds whose prefill forward into a held cache is captured once per
+#: shape as a CUDA graph and replayed bitwise (tests/test_torch_cuda.py
+#: holds each against the eager call on the card)
+GRAPH_KINDS = ("dense",)
+
+# ``model.prefill``'s payloads: replayed from a graph, or run eagerly (a
+# capture's call included: its outputs are its eager warm-up's)
+_EAGER = {"graph": 0}
+_REPLAY = {"graph": 1}
+
+
+def _leaves(tree):
+    """The tensors of a params tree, in insertion order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+class _PrefillGraph:
+    """One captured prefill forward: its static inputs, the graph, the
+    outputs each replay overwrites (the logits and the cache leaves the
+    forward returns anew) and the kernel launches a replay runs."""
+
+    def __init__(self, inputs, graph, logits, leaves, launches):
+        self.inputs = inputs
+        self.graph = graph
+        self.logits = logits
+        self.leaves = leaves
+        self.launches = launches
+
+    def replay(self, batch, cache):
+        for key, t in self.inputs.items():
+            t.copy_(batch[key])
+        self.graph.replay()
+        cuda_kernels.add_launches(self.launches)
+        return self.logits, dict(cache, **self.leaves)
 
 
 class Model:
@@ -72,6 +122,11 @@ class Model:
         # KV-head replication; 1 = the paper-faithful baseline
         self.kv_repeat = kv_repeat
         self.device = resolve_device(device)
+        # id of each held cache's `length` leaf (while it lives) ->
+        # {call key: graph}
+        self._graphs = {}
+        self._graph_pool = None         # one memory pool for every shape
+        self._capture_stream = None
 
     # ------------------------------------------------------------------ init
     def init(self, generator: torch.Generator, dtype=torch.float32):
@@ -143,6 +198,19 @@ class Model:
                                     device=self.device, abstract=abstract,
                                     kv_repeat=self.kv_repeat)
 
+    def hold_cache(self, batch: int, max_seq: int, *, enc_seq: int = 0,
+                   dtype=torch.float32):
+        """``init_cache``'s zeroed cache, registered as one its caller
+        holds and reuses for every prefill of `batch` rows, zeroing each
+        leaf before each call (the bucketed path's,
+        ``serving.engine.BucketedPrefill``). A prefill into it may run from
+        a CUDA graph (``prefill``); the graphs live as long as the cache."""
+        cache = self.init_cache(batch, max_seq, enc_seq=enc_seq, dtype=dtype)
+        length = cache["length"]
+        self._graphs[id(length)] = {}
+        weakref.finalize(length, self._graphs.pop, id(length), None)
+        return cache
+
     def supports_physical_paging(self) -> bool:
         return cache_lib.supports_physical_paging(self.cfg)
 
@@ -168,12 +236,105 @@ class Model:
         those of each row's last text position.
         Returns (logits (B, V), cache').
 
+        Into a held cache (``hold_cache``) on CUDA, for a kind in
+        GRAPH_KINDS, with tokens and lengths alone and nothing requiring
+        grad (``_graph_slot``, the one place that decides), the call runs
+        from a CUDA graph of its shape and the params' storage: the
+        first such call runs the forward eagerly and captures it
+        (``_capture``), every later one replays it. A replay runs the
+        eager call's kernels in its order on the current stream, so its
+        outputs are bitwise the eager call's; the logits and the
+        returned ``length`` are the graph's, which the next replay of any
+        shape may overwrite: consume them first, on the same stream.
+        Every other call runs the eager body.
+
         Called with a span open in a log on this thread (the engine's
         ``engine.prefill_call``), it writes ``model.prefill`` there, the
-        enqueue of the whole call, with ``model.cache_fill``, the copies
-        of the layers' planes into the cache, inside it."""
+        enqueue of the whole call, payload ``{"graph": 1}`` for a replay
+        and ``{"graph": 0}`` otherwise; on an eager call (a capture's
+        included) ``model.cache_fill``, the copies of the layers' planes
+        into the cache, inside it; and the counters
+        ``prefill.graph_captures`` and ``prefill.graph_replays``."""
         log = spans_lib.active()
-        span = spans_lib.begin(log, "model.prefill")
+        graphs, key = self._graph_slot(params, batch, cache)
+        graph = graphs.get(key) if graphs is not None else None
+        span = spans_lib.begin(log, "model.prefill",
+                               _EAGER if graph is None else _REPLAY)
+        if graphs is None:
+            out = self._prefill(params, batch, cache, log)
+        elif graph is None:
+            graphs[key], out = self._capture(params, batch, cache, log)
+        else:
+            out = graph.replay(batch, cache)
+        if log is not None and graphs is not None:
+            log.count(("prefill.graph_captures" if graph is None
+                       else "prefill.graph_replays", 1))
+        spans_lib.end(log, span)
+        return out
+
+    def _graph_slot(self, params, batch, cache):
+        """(the held cache's graphs, the call's key) when the call runs
+        from a graph, else (None, None): the device is CUDA, the kind in
+        GRAPH_KINDS, the cache held (``hold_cache``), the batch tokens and
+        lengths alone, and grad mode off or no param requiring grad. The
+        key is the inputs' shapes and dtypes and the params' storage."""
+        if self.cfg.kind not in GRAPH_KINDS or self.device.type != "cuda":
+            return None, None
+        graphs = self._graphs.get(id(cache["length"]))
+        if graphs is None or batch.keys() != {"tokens", "lengths"}:
+            return None, None
+        leaves = list(_leaves(params))
+        if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
+            return None, None
+        tokens, lengths = batch["tokens"], batch["lengths"]
+        key = (tuple(tokens.shape), tokens.dtype, tuple(lengths.shape),
+               lengths.dtype, tuple((t.data_ptr(), tuple(t.shape), t.dtype)
+                                    for t in leaves))
+        return graphs, key
+
+    def _capture(self, params, batch, cache, log):
+        """The first call of a shape: the forward eagerly on the capture
+        stream, which is the warm-up a capture needs and gives this call's
+        outputs, then the same forward captured on that stream into a
+        graph in the model's one memory pool. The captured launches run
+        nothing, so they leave the launch counters as they were and are
+        added on each replay. The garbage collector is off while it
+        captures. A failed capture raises.
+        Returns (the graph, this call's outputs)."""
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        stream, main = self._capture_stream, torch.cuda.current_stream()
+        inputs = {key: t.clone() for key, t in batch.items()}
+        stream.wait_stream(main)
+        with torch.cuda.stream(stream):
+            logits, out = self._prefill(params, inputs, cache, log)
+        graph = torch.cuda.CUDAGraph()
+        # a collection during the capture could free another graph (an
+        # engine's cycles hold them), which a capture forbids; the
+        # capture's entry collects first
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with cuda_kernels.recorded_launches() as launches, \
+                    torch.cuda.graph(graph, pool=self._graph_pool,
+                                     stream=stream,
+                                     capture_error_mode="thread_local"):
+                g_logits, g_out = self._prefill(params, inputs, cache, None)
+        finally:
+            if collecting:
+                gc.enable()
+        main.wait_stream(stream)
+        fresh = {k: t for k, t in out.items() if cache.get(k) is not t}
+        for t in (logits, *fresh.values()):
+            t.record_stream(main)
+        g_fresh = {k: t for k, t in g_out.items() if cache.get(k) is not t}
+        return (_PrefillGraph(inputs, graph, g_logits, g_fresh, launches),
+                (logits, out))
+
+    def _prefill(self, params, batch, cache, log):
+        """``prefill``'s eager body, writing ``model.cache_fill`` into
+        `log` (None: nowhere)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
@@ -212,7 +373,6 @@ class Model:
         last = torch.clamp(lengths.long() - 1, 0, s - 1)
         h_last = h[torch.arange(b, device=h.device), last]
         logits = unembed(params, h_last)
-        spans_lib.end(log, span)
         return logits, cache
 
     def decode_step(self, params, tokens, cache):

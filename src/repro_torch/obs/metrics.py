@@ -577,6 +577,10 @@ SPAN_COUNTER_GAUGES = (
      "valid tokens prefilled"),
     ("prefill.token_slots", "engine_prefill_token_slots_total",
      "token slots prefilled: rows x length bucket"),
+    ("prefill.graph_captures", "engine_prefill_graph_captures_total",
+     "prefill forwards captured as a CUDA graph: one per shape"),
+    ("prefill.graph_replays", "engine_prefill_graph_replays_total",
+     "prefill forwards replayed from a CUDA graph"),
 )
 
 

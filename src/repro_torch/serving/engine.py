@@ -15,6 +15,9 @@ What differs from the reference, and why:
 * PyTorch runs eagerly, so the jitted entry points are the model's
   methods themselves, and the persistent decode block is j device steps
   with argmax feedback and one host sync (``Model.decode_persistent``).
+  On CUDA the bucketed prefill's forward, whose shapes repeat, is
+  captured once per (rows, bucket) as a CUDA graph and replayed
+  (``BucketedPrefill``, ``Model.prefill``).
 * Caches are updated in place; JAX's out-of-range rules are spelled out
   where the reference leans on them (dropped scatters for the sentinel
   slot / page, clamped gathers and writes — models/cache.py).
@@ -187,11 +190,19 @@ class BucketedPrefill:
     An encoder-decoder's rows also take frames, padded to
     (rows, enc_seq, d) f32 with zeros for a row that has none.
 
+    It holds one prefill cache per row count (``Model.hold_cache``) and
+    zeroes it before each call, so every call sees the bytes a fresh
+    ``init_cache`` gives and the model may replay that call's forward
+    from a CUDA graph (``Model.prefill``). The cache rows a call returns
+    are the held cache's (and the graph's `length`): the write consumes
+    them before the next call.
+
     Into its span log `spans` (the engine's; by default ``NO_SPANS``,
     which keeps nothing), each bucket group writes one
     ``engine.prefill_call`` span, payload rids, valid lengths, padded
     rows and bucket, over its parts in call order: ``prefill.stage``
-    (host padding and H2D), ``prefill.cache_init``, the model's
+    (host padding and H2D), ``prefill.cache_init`` (the held cache's
+    zeroing), the model's
     ``model.prefill``, ``prefill.write`` (the slot scatter) and
     ``prefill.readback`` (the first tokens' copy to the host); and the
     counters ``prefill.calls``, ``prefill.rows`` (real rows),
@@ -217,6 +228,7 @@ class BucketedPrefill:
         self.shapes_seen = set()        # (rows, len_bucket) signatures
         self.on_compile = None          # optional fn(key) on a new shape
         self.spans = spans
+        self._held: Dict[int, dict] = {}    # rows -> the held cache
 
     def note_shape(self, key) -> None:
         if key not in self.shapes_seen:
@@ -240,9 +252,15 @@ class BucketedPrefill:
     def _call(self, params, tokens, lengths, frames):
         sp = self.spans
         tok = sp.begin("prefill.cache_init")
-        cache = self.model.init_cache(tokens.shape[0], self.cache_seq,
-                                      enc_seq=self.enc_seq,
-                                      dtype=self.cache_dtype)
+        rows = tokens.shape[0]
+        cache = self._held.get(rows)
+        if cache is None:
+            cache = self._held[rows] = self.model.hold_cache(
+                rows, self.cache_seq, enc_seq=self.enc_seq,
+                dtype=self.cache_dtype)
+        else:
+            for leaf in cache.values():
+                leaf.zero_()
         sp.end(tok)
         batch = {"tokens": tokens, "lengths": lengths}
         if self.enc_seq:

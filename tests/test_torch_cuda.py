@@ -41,6 +41,10 @@ without its chunk states, and the last chunk state is its final state.
 ``ops.SelectiveScan`` (through ``ops.selective_scan`` and ``ops.ssd``)
 under ``torch.utils.checkpoint`` is held against torch autograd of the
 plain scans on the CPU, each scan's backward on its own body.
+The prefill forward captured as a CUDA graph (``Model.prefill`` into a
+held cache) is held bitwise against the eager call at every length
+bucket of one row, its replayed kernels are counted and seen by the
+profiler, and an engine serves the same tokens with graphs as without.
 """
 import numpy as np
 import pytest
@@ -1200,3 +1204,140 @@ def test_kernels_without_backward_refuse_grad_mode(dev):
     with torch.no_grad():                        # serving: no grad mode
         ops.decode_attention(q, k, k, lengths)
         ops.selective_scan(x, dt, A, B, C, D)
+
+
+GRAPH_BUCKETS = (16, 32, 64, 128, 256, 512, 1024)
+GRAPH_DEPTH = 2048
+
+
+def _graph_model():
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+    m = Model(get_smoke_config("granite-3-2b"), device="cuda")
+    return m, m.init(torch.Generator("cuda").manual_seed(0), torch.bfloat16)
+
+
+def _graph_batch(m, bucket, n, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    toks = torch.zeros((1, bucket), dtype=torch.int32)
+    toks[0, :n] = torch.randint(0, m.cfg.vocab_size, (n,), generator=g,
+                                dtype=torch.int32)
+    return {"tokens": toks.to(dev),
+            "lengths": torch.tensor([n], dtype=torch.int32, device=dev)}
+
+
+@pytest.mark.parametrize("bucket", GRAPH_BUCKETS)
+def test_prefill_graph_replay_bitwise_eager(dev, bucket):
+    """A held cache's first call captures, the next two replay with other
+    tokens and lengths (stale static inputs would show); each is bitwise
+    the eager call into a fresh cache in logits, k/v planes and length,
+    and each runs the flash kernel once a layer."""
+    from repro_torch.obs.spans import SpanLog
+    m, p = _graph_model()
+    held = m.hold_cache(1, GRAPH_DEPTH, dtype=torch.bfloat16)
+    log = SpanLog()
+    call = log.begin("engine.prefill_call")
+    for i, n in enumerate((bucket, bucket // 2 + 1, bucket - 3)):
+        batch = _graph_batch(m, bucket, n, 1000 * bucket + i, dev)
+        for leaf in held.values():
+            leaf.zero_()
+        before = tcuda.launches["flash_attention"]
+        logits, out = m.prefill(p, batch, held)
+        flash = tcuda.launches["flash_attention"] - before
+        fresh = m.init_cache(1, GRAPH_DEPTH, dtype=torch.bfloat16)
+        want_logits, want = m.prefill(p, dict(batch), fresh)
+        torch.cuda.synchronize()
+        assert flash == m.cfg.num_layers, (i, flash)
+        assert torch.equal(logits, want_logits), i
+        for key in ("k", "v", "length"):
+            assert torch.equal(out[key], want[key]), (i, key)
+    log.end(call)
+    assert log.counters == {"prefill.graph_captures": 1,
+                            "prefill.graph_replays": 2}
+    flags = [s.payload["graph"] for s in log.spans()
+             if s.name == "model.prefill"]
+    assert flags == [0, 0, 1, 0, 1, 0]
+
+
+def test_prefill_graph_kernels_reach_the_profiler(dev):
+    """A replay's kernels appear in ``torch.profiler``'s device events
+    under their own names: the flash kernel once a layer."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    m, p = _graph_model()
+    held = m.hold_cache(1, GRAPH_DEPTH, dtype=torch.bfloat16)
+    batch = _graph_batch(m, 64, 50, 7, dev)
+    m.prefill(p, batch, held)                    # the capture
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        m.prefill(p, batch, held)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    assert sum("flash_mma_kernel" in n for n in names) == m.cfg.num_layers
+    assert len(names) > 10 * m.cfg.num_layers
+
+
+def test_prefill_graph_captures_with_the_collector_off(dev, monkeypatch):
+    """A collection inside a capture could free an older graph (an
+    engine's reference cycles hold them), which invalidates the capture:
+    the collector is off while the forward is captured, and on again
+    after."""
+    import gc
+    from repro_torch.models.model import Model
+    seen = []
+    inner = Model._prefill
+
+    def body(self, *a):
+        seen.append((torch.cuda.is_current_stream_capturing(),
+                     gc.isenabled()))
+        return inner(self, *a)
+
+    monkeypatch.setattr(Model, "_prefill", body)
+    m, p = _graph_model()
+    held = m.hold_cache(1, GRAPH_DEPTH, dtype=torch.bfloat16)
+    batch = _graph_batch(m, 32, 20, 2, dev)
+    m.prefill(p, batch, held)
+    assert seen == [(False, True), (True, False)]   # warm-up, capture
+    assert gc.isenabled()
+    m.prefill(p, batch, held)
+    assert len(seen) == 2                           # a replay
+
+
+@pytest.mark.parametrize("output_len", [1, 6])
+def test_engine_serves_the_same_tokens_with_graphs(dev, monkeypatch,
+                                                   output_len):
+    """The bucketed engine replays its prefills from graphs and serves
+    the tokens it serves with every prefill eager (no kind graphed)."""
+    import numpy as np
+    from repro_torch.core import (TPU_V5E, LatencyModel, QoESpec,
+                                  SchedulerConfig, make_scheduler)
+    from repro_torch.models import model as model_mod
+    from repro_torch.serving import Request, ServingEngine
+    m, p = _graph_model()
+
+    def serve():
+        lat = LatencyModel(m.cfg, TPU_V5E)
+        sched = make_scheduler("andes", 4096, lat,
+                               SchedulerConfig(delta_t=2.0))
+        eng = ServingEngine(m, p, sched, lat, num_slots=8, max_seq=256,
+                            capacity_tokens=4096, page_size=16,
+                            cache_dtype=torch.bfloat16, device="cuda")
+        rng = np.random.default_rng(3)
+        reqs = []
+        for i in range(24):
+            n = int(rng.integers(3, 200))
+            reqs.append(Request(
+                rid=i, arrival=0.01 * (i % 6), prompt_len=n,
+                output_len=output_len, spec=QoESpec(ttft=1.0, tds=4.8),
+                prompt_tokens=rng.integers(0, m.cfg.vocab_size, n)))
+        eng.run(reqs, max_iterations=4000)
+        return [r.output_tokens for r in reqs], eng.spans.counters
+
+    graphed, counts = serve()
+    assert counts["prefill.graph_replays"] > 0
+    monkeypatch.setattr(model_mod, "GRAPH_KINDS", ())
+    eager, counts = serve()
+    assert "prefill.graph_captures" not in counts
+    assert graphed == eager
