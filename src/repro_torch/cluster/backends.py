@@ -58,6 +58,7 @@ def engine_backend(
     hotpath=None,
     cache_dtype=torch.float32,
     device="cuda",
+    reference_decode: bool = False,
 ) -> BackendFactory:
     """Factory of real-model replicas: each one a `ServingEngine` over the
     shared `(model, params)`. `capacity_tokens` defaults to the cluster
@@ -69,7 +70,9 @@ def engine_backend(
     engine default; pass HotpathConfig.baseline() for the eager loop).
     `cache_dtype` is each replica's KV cache dtype; `device` must be the
     model's (a card by default: without one this raises, here rather
-    than at the first replica)."""
+    than at the first replica); `reference_decode` is the engine's (the
+    JAX engine's decode layout and moe routing, for differential
+    tests)."""
     dev = resolve_device(device)
     if dev.type != model.device.type:
         raise ValueError(f"engine_backend device {device!r} differs from "
@@ -88,6 +91,7 @@ def engine_backend(
             preemption_mode=cluster_cfg.preemption_mode,
             clock=clock, eos_id=eos_id, hotpath=hotpath,
             cache_dtype=cache_dtype, device=dev,
+            reference_decode=reference_decode,
         )
     return factory
 
@@ -107,6 +111,7 @@ def speculative_backend(
     hotpath=None,
     cache_dtype=torch.float32,
     device="cuda",
+    reference_decode: bool = False,
 ) -> BackendFactory:
     """Factory of speculative real-model replicas: each one a
     `ServingEngine` whose rounds draft-propose `spec_k` tokens with the
@@ -117,8 +122,9 @@ def speculative_backend(
     The replica's scheduler is re-pointed at a `SpeculativeLatencyModel`
     on its own hardware spec, so knapsack pricing, the router's
     marginal-gain queries and admission control see the expected
-    1..k+1-token bursts. `cache_dtype` and `device` as `engine_backend`'s
-    (a card by default: without one this raises here)."""
+    1..k+1-token bursts. `cache_dtype`, `device` and `reference_decode`
+    as `engine_backend`'s (a card by default: without one this raises
+    here)."""
     dev = resolve_device(device)
     if dev.type != model.device.type:
         raise ValueError(f"speculative_backend device {device!r} differs "
@@ -142,6 +148,7 @@ def speculative_backend(
             clock=clock, eos_id=eos_id, hotpath=hotpath,
             cache_dtype=cache_dtype, draft_model=draft_model,
             draft_params=draft_params, spec_k=spec_k, device=dev,
+            reference_decode=reference_decode,
         )
     return factory
 

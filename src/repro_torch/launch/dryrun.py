@@ -210,32 +210,26 @@ def _lerp(lo: dict, hi: dict, x0: float, x1: float, x: float) -> dict:
 # Fake process group and mesh
 # ---------------------------------------------------------------------------
 
-def _fake_world(size: int) -> None:
-    """A fake default process group of `size` ranks, this process rank
-    0 (replacing one of another size)."""
+@contextlib.contextmanager
+def device_mesh(mesh: MeshShape):
+    """The CPU ``DeviceMesh`` of `mesh` over a fake default process group
+    of its size, this process rank 0, for the length of the block: the
+    group is made on entry and destroyed on exit, so no later code of
+    the process finds it. Refuses to start where a default group is
+    already up."""
     import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
     from torch.testing._internal.distributed.fake_pg import FakeStore
     if dist.is_initialized():
-        if dist.get_backend() == "fake" and dist.get_world_size() == size:
-            return
-        dist.destroy_process_group()
-    _MESHES.clear()
+        raise RuntimeError("the dry run's fake process group needs a "
+                           "process with no default group")
     dist.init_process_group("fake", store=FakeStore(), rank=0,
-                            world_size=size)
-
-
-_MESHES: Dict[MeshShape, object] = {}
-
-
-def device_mesh(mesh: MeshShape):
-    """The CPU ``DeviceMesh`` of `mesh` over a fake process group of its
-    size, this process rank 0 (built once per shape and group)."""
-    _fake_world(math.prod(mesh.shape))
-    if mesh not in _MESHES:
-        from torch.distributed.device_mesh import init_device_mesh
-        _MESHES[mesh] = init_device_mesh("cpu", mesh.shape,
-                                         mesh_dim_names=mesh.mesh_dim_names)
-    return _MESHES[mesh]
+                            world_size=math.prod(mesh.shape))
+    try:
+        yield init_device_mesh("cpu", mesh.shape,
+                               mesh_dim_names=mesh.mesh_dim_names)
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
@@ -688,8 +682,8 @@ def measure(cfg: ModelConfig, shape: ShapeConfig, shape_name: str,
     """One run of the step: rank 0's counts."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor.experimental import implicit_replication
-    mesh = device_mesh(mesh_shape)
-    with FakeTensorMode(allow_non_fake_inputs=True), \
+    with device_mesh(mesh_shape) as mesh, \
+            FakeTensorMode(allow_non_fake_inputs=True), \
             kernels_as_local_ops(), implicit_replication():
         fn, args = build_step(cfg, shape, shape_name, mesh_shape, opt,
                               microbatches, mesh)

@@ -375,36 +375,39 @@ class Model:
         logits = unembed(params, h_last)
         return logits, cache
 
-    def decode_step(self, params, tokens, cache):
-        """tokens (B,) int32 -> (logits (B, V), cache')."""
+    def decode_step(self, params, tokens, cache, live=None):
+        """tokens (B,) int32 -> (logits (B, V), cache'). `live`
+        (``moe.LiveRows``): the rows a moe model routes
+        (``transformer.decode_step``); None routes every row."""
         return tfm.decode_step(params, self.cfg, tokens, cache,
-                               window=self.window, kv_repeat=self.kv_repeat)
+                               window=self.window, kv_repeat=self.kv_repeat,
+                               live=live)
 
-    def decode_tokens(self, params, tokens, cache):
+    def decode_tokens(self, params, tokens, cache, live=None):
         """Fused greedy decode: tokens (B,) -> (next_ids (B,) int32, cache'),
         argmax on the device (first max wins on ties)."""
-        logits, cache = self.decode_step(params, tokens, cache)
+        logits, cache = self.decode_step(params, tokens, cache, live)
         return _argmax_ids(logits), cache
 
-    def decode_multi(self, params, tokens, cache, j: int):
+    def decode_multi(self, params, tokens, cache, j: int, live=None):
         """j greedy decode iterations with the argmax fed back on the
         device: tokens (B,) -> (ids (j, B) int32, cache'). No host sync
         inside; the caller syncs once on `ids`."""
         out = []
         tok = tokens
         for _ in range(j):
-            tok, cache = self.decode_tokens(params, tok, cache)
+            tok, cache = self.decode_tokens(params, tok, cache, live)
             out.append(tok)
         return torch.stack(out), cache
 
     def decode_persistent(self, params, tokens, cache, j: int, *,
-                          j_cap: int):
+                          j_cap: int, live=None):
         """The reference's device while_loop as j device steps with the
         argmax fed back (torch has no device loop with a dynamic bound) and
         no host sync inside. It does not stop early at EOS: callers commit
         the prefix they need and roll the rest back by `length`. Returns
         (ids (j_cap, B) int32 — rows past j are zeros, cache', steps=j)."""
-        ids, cache = self.decode_multi(params, tokens, cache, j)
+        ids, cache = self.decode_multi(params, tokens, cache, j, live)
         out = torch.zeros((j_cap, tokens.shape[0]), dtype=torch.int32,
                           device=ids.device)
         out[:j] = ids

@@ -29,12 +29,18 @@ out:
   classifies it with ``serving.lossless.audit_flips``.
 
 Like any capacity-routed MoE the result is weakly batch-dependent: which
-slots drop depends on every token in the call (in decode, every slot of
-the batch, inactive ones included).
+slots drop depends on every token in the call. Decode is the exception
+the serving engine relies on: it routes only the batch's live rows
+(``valid``) under a capacity of one slot per live row (``cap``),
+which no expert's queue can pass, since a token's top-k experts are
+distinct; so no slot drops and each decoded token is routed as a call of
+its own, as the plain reference (``qoebench/reference/model.py``) routes
+it. Under the reference engine's setting every slot of the batch is
+routed, empty ones included, at ``capacity(B)``.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +49,14 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import mlp_apply
 
 CAPACITY_FACTOR = 1.25
+
+
+class LiveRows(NamedTuple):
+    """The rows of a decode batch that hold a request: `mask` (B,) bool on
+    the device and `count`, their number, on the host. A moe decode step
+    given them routes those rows only, at `count` slots per expert."""
+    mask: torch.Tensor
+    count: int
 
 
 def capacity(t: int, cfg: ModelConfig) -> int:
@@ -73,10 +87,12 @@ def moe_apply_chunked(p, x, cfg: ModelConfig, valid=None,
     return torch.cat(ys, dim=1), torch.stack(auxs).mean()
 
 
-def route(router, xt: torch.Tensor, cfg: ModelConfig, valid=None):
+def route(router, xt: torch.Tensor, cfg: ModelConfig, valid=None,
+          cap=None):
     """Routing and capacity plan of t tokens xt (t, d): softmax over the
     router logits, top-k, renormalised weights, each slot's position in
-    its expert's queue and whether it fits the capacity. Returns a dict of
+    its expert's queue and whether it fits the capacity (`cap` slots per
+    expert; ``capacity(t, cfg)`` by default). Returns a dict of
     probs (t, E) f32, top_w (t, k) f32, top_e (t, k) (E for padding),
     slot_pos (t*k,) (== cap where dropped), keep (t*k,) bool, cap and
     by_expert (E, t*k) bool (each slot's expert, one-hot by column)."""
@@ -92,7 +108,8 @@ def route(router, xt: torch.Tensor, cfg: ModelConfig, valid=None):
         top_w = top_w * vt[:, None]
         top_e = torch.where(vt[:, None], top_e, E)              # no expert
         probs = probs * vt[:, None]
-    cap = capacity(t, cfg)
+    if cap is None:
+        cap = capacity(t, cfg)
     flat_e = top_e.reshape(t * k)
     # position of each slot within its expert's queue (exact in integers;
     # an off-range slot has no expert and position 0, as in the reference)
@@ -110,18 +127,19 @@ def route(router, xt: torch.Tensor, cfg: ModelConfig, valid=None):
                 keep=keep, cap=cap, by_expert=by_expert)
 
 
-def moe_apply(p, x: torch.Tensor, cfg: ModelConfig,
-              valid=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, valid=None,
+              cap=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (y (B, S, d), aux_loss scalar f32).
 
     valid: optional (B, S) bool; padding tokens are routed to no expert,
-    so they consume no capacity and add nothing to the aux loss."""
+    so they consume no capacity and add nothing to the aux loss.
+    cap: slots per expert, in place of ``capacity(B * S, cfg)``."""
     m = cfg.moe
     E, k = m.num_experts, m.top_k
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
-    plan = route(p["router"], xt, cfg, valid)
+    plan = route(p["router"], xt, cfg, valid, cap)
     cap, slot_pos, keep = plan["cap"], plan["slot_pos"], plan["keep"]
     flat_e = plan["top_e"].reshape(t * k)
     flat_w = plan["top_w"].reshape(t * k)

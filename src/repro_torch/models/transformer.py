@@ -61,7 +61,7 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import embed_apply, mlp_apply, rms_norm, unembed
 from repro_torch.models.layout import keep_layout
-from repro_torch.obs.spans import sublayer_ranges, unranged
+from repro_torch.obs.spans import active, sublayer_ranges, unranged
 
 
 def layer_params(tree, i: int):
@@ -293,9 +293,9 @@ def _forward_hybrid(params, cfg, h, window, collect_cache, lengths,
     return h, {"k": ks, "v": vs, "ssm_h": hs, "ssm_conv": convs}
 
 
-def _moe_mlp(bp, cfg, h, a, valid, seq_chunk, ep_mesh=None):
+def _moe_mlp(bp, cfg, h, a, valid, seq_chunk, ep_mesh=None, cap=None):
     """Residual add of an attention output `a`, then the block's MoE
-    layer -> (h', aux)."""
+    layer -> (h', aux); `cap` (slots per expert) reaches ``moe_apply``."""
     h = h + a
     x = rms_norm(h, bp["mlp_norm_scale"], cfg.norm_eps)
     if ep_mesh is not None:
@@ -305,7 +305,7 @@ def _moe_mlp(bp, cfg, h, a, valid, seq_chunk, ep_mesh=None):
         y, aux = moe_lib.moe_apply_chunked(bp["moe"], x, cfg, valid=valid,
                                            seq_chunk=seq_chunk)
     else:
-        y, aux = moe_lib.moe_apply(bp["moe"], x, cfg, valid=valid)
+        y, aux = moe_lib.moe_apply(bp["moe"], x, cfg, valid=valid, cap=cap)
     return h + y, aux
 
 
@@ -346,14 +346,24 @@ def _forward_dense(params, cfg, h, window, lengths, moe_seq_chunk,
 
 
 def decode_step(params, cfg: ModelConfig, tokens, cache, *,
-                window: Optional[int] = None, kv_repeat: int = 1):
+                window: Optional[int] = None, kv_repeat: int = 1,
+                live: Optional[moe_lib.LiveRows] = None):
     """One decode iteration: tokens (B,) int32 -> (logits (B, V), cache').
 
     The cache's k/v (or ssm_h/ssm_conv, or all four for hybrid) are
     updated in place (an encoder-decoder's cross planes are only read);
     the returned dict carries length + 1. A cache with
     `block_tables` routes through the page pool (one write plan serves
-    every layer)."""
+    every layer).
+
+    A moe model routes the `live` rows only (``moe.LiveRows``), at one
+    slot per live row and expert, so nothing drops and each row is
+    routed as a call of its own; with `live` None it routes every row
+    under ``moe.capacity(B)``, as the reference does. Into the log with a
+    span open on this thread (the engine's ``engine.decode_block``) it
+    counts ``moe.routed_slots`` (routed rows x top-k) and
+    ``moe.expert_rows`` (experts x capacity: the rows the expert products
+    compute), each over every layer."""
     check_kind(cfg)
     lengths = cache["length"]
     h = embed_apply(params["embed"], tokens)
@@ -364,7 +374,7 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, *,
     elif cfg.kind == "hybrid":
         h = _decode_hybrid(params, cfg, h, cache, window, kv_repeat)
     else:
-        h = _decode_dense(params, cfg, h, cache, window, kv_repeat)
+        h = _decode_dense(params, cfg, h, cache, window, kv_repeat, live)
     h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
     return unembed(params, h), dict(cache, length=lengths + 1)
 
@@ -426,13 +436,32 @@ def _decode_encdec(params, cfg, h, cache, window):
     return h
 
 
-def _decode_dense(params, cfg, h, cache, window, kv_repeat=1):
+def _moe_decode_plan(cfg, rows: int, live):
+    """(valid (B, 1) or None, slots per expert) of a moe decode step over
+    `rows` rows, counted into the active span log (``decode_step``)."""
+    m = cfg.moe
+    if live is None:
+        valid, routed, cap = None, rows, moe_lib.capacity(rows, cfg)
+    else:
+        valid, routed = live.mask[:, None], live.count
+        cap = max(live.count, 1)
+    log = active()
+    if log is not None:
+        n = cfg.num_layers
+        log.count(("moe.routed_slots", n * routed * m.top_k),
+                  ("moe.expert_rows", n * m.num_experts * cap))
+    return valid, cap
+
+
+def _decode_dense(params, cfg, h, cache, window, kv_repeat=1, live=None):
     lengths = cache["length"]
     paged = "block_tables" in cache
     plan = None
     if paged:
         plan = attn.paged_write_plan(cache["block_tables"], lengths,
                                      cache["k"].shape[1], cache["k"].shape[2])
+    if cfg.kind == "moe":
+        valid, cap = _moe_decode_plan(cfg, h.shape[0], live)
     ranges = sublayer_ranges()
     for i in range(cfg.num_layers):
         bp = layer_params(params["blocks"], i)
@@ -449,9 +478,9 @@ def _decode_dense(params, cfg, h, cache, window, kv_repeat=1):
                                            cfg, window=window,
                                            kv_repeat=kv_repeat)
         if cfg.kind == "moe":
-            # every slot is routed, inactive ones included (reference)
             with ranges("mlp"):
-                h2, _ = _moe_mlp(bp, cfg, h[:, None], a[:, None], None, 0)
+                h2, _ = _moe_mlp(bp, cfg, h[:, None], a[:, None], valid, 0,
+                                 cap=cap)
             h2 = h2[:, 0]
         else:
             h2 = _add_mlp(bp, cfg, h, a, ranges)

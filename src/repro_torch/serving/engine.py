@@ -31,7 +31,20 @@ What differs from the reference, and why:
   Dispatch and sync counters are the reference's (``spec_fused``,
   ``spec_block``, ``propose``, ``verify``, ``draft_prefill``, ``write``).
 * MoE models keep the eager exact-length prefill (capacity depends on the
-  padded token count), as in the reference.
+  padded token count), as in the reference, so a prompt's capacity
+  counts that request's own tokens as one call.
+* Decode pins each row's cache ``length`` to ``context_len - 1``, the
+  position its last committed token goes to: the prefill leaves
+  positions [0, P) and the first emitted token's k/v is written at P by
+  the first decode. The reference pins ``context_len``, one past, so
+  every decoded token there attends position P, which holds prefill
+  padding. A moe model's decode routes only the live rows
+  (``moe.LiveRows``) at one slot per live row, so no slot drops and
+  each token is routed as a call of its own; the reference routes every
+  slot, empty ones included, under one capacity over the batch.
+  ``reference_decode=True`` restores both reference behaviours (the JAX
+  differential tests pass it); the virtual clock prices the committed
+  context either way, so ``timing_fingerprint`` does not move.
 
 Observers (``repro_torch.obs``) attach as in the reference: ``observer``
 / ``set_observer`` install one, ``attach_observer`` composes another
@@ -46,9 +59,11 @@ Spans (``repro_torch.obs.spans``): the engine always writes its
 ``SpanLog``, ``spans``, on its own clock, cleared by ``reset()``: ``engine.step`` over its
 ``engine.schedule``; ``engine.prefill_call`` per bucket group (see
 ``BucketedPrefill``) or eager call, with its parts; ``engine.decode_block``
-per decode entry point (payload j, rows); ``engine.swap_out`` and
+per decode entry point (payload j, rows, and slots: the batch width the
+decode computes, every slot); ``engine.swap_out`` and
 ``engine.swap_in`` (payload rid); ``engine.tick_sleep`` when ``_tick``
-sleeps; and the prefill counters.
+sleeps; the prefill counters; and, from a moe model's decode steps,
+``moe.routed_slots`` and ``moe.expert_rows`` (``transformer.decode_step``).
 
 On a CUDA device the model's attention runs on the hand-written kernels
 (kernels/csrc); on the CPU on their plain versions.
@@ -70,6 +85,7 @@ from repro_torch.core.scheduler import Scheduler
 from repro_torch.device import resolve_device
 from repro_torch.models import cache as cache_lib
 from repro_torch.models.model import Model
+from repro_torch.models.moe import LiveRows
 from repro_torch.obs.observer import EventSinkAdapter, compose
 from repro_torch.obs.spans import NO_SPANS, SpanLog
 from repro_torch.serving.kv_manager import KVSlotManager
@@ -409,6 +425,7 @@ class ServingEngine:
         page_size: Optional[int] = None,
         physical_pages: Optional[bool] = None,
         device="cuda",
+        reference_decode: bool = False,
     ):
         if resolve_device(device).type != model.device.type:
             raise ValueError(f"engine device {device!r} differs from the "
@@ -428,6 +445,12 @@ class ServingEngine:
         self._num_slots = num_slots
         self._capacity_tokens = capacity_tokens
         self._rollback_ok = cache_lib.supports_length_rollback(model.cfg)
+        # decode as the reference engine does (module docstring): rows
+        # pinned one past their last committed position, every slot routed
+        self.reference_decode = bool(reference_decode)
+        self._length_lag = 0 if self.reference_decode else 1
+        self._live_routing = (model.cfg.kind == "moe"
+                              and not self.reference_decode)
 
         # ---- speculative decoding (optional) ----------------------------
         self.spec_k = int(spec_k)
@@ -612,7 +635,25 @@ class ServingEngine:
                 self.obs.sync(self.now, n)
 
     def _begin_decode(self, j: int, rows: int) -> int:
-        return self.spans.begin("engine.decode_block", {"j": j, "rows": rows})
+        return self.spans.begin("engine.decode_block",
+                                {"j": j, "rows": rows,
+                                 "slots": self.kv.num_slots})
+
+    def decode_length(self, context_len):
+        """The cache ``length`` a decode row with `context_len` committed
+        tokens is pinned to: the position its last committed token's k/v
+        is written at, ``context_len - 1``; ``context_len`` under
+        ``reference_decode``."""
+        return context_len - self._length_lag
+
+    def _live_rows(self, n: int) -> Optional[LiveRows]:
+        """The rows a moe model's decode routes outside
+        ``reference_decode``: the slots pinned to a positive length, which
+        are the `n` active ones (each holds a prompt), found on the
+        device; None (every row) otherwise."""
+        if not self._live_routing:
+            return None
+        return LiveRows(self.cache["length"] > 0, n)
 
     def _dispatch(self, kind: str, n: int = 1) -> None:
         if n:
@@ -654,9 +695,11 @@ class ServingEngine:
     def _paged_writer(self, cache, src, pad):
         """Scatter a contiguous prefill result into the page pool — the
         paged image of `_write_slots`. counts = length + 1: the contiguous
-        path writes the FULL padded row, and the one junk position a fresh
-        request ever attends is index `prompt` (its first emitted token's
-        KV is never written), so the +1 copies that position's content."""
+        path writes the FULL padded row, and under ``reference_decode`` the
+        one junk position a fresh request ever attends is index `prompt`
+        (its first emitted token's KV is never written there), so the +1
+        copies that position's content; otherwise the first decode
+        overwrites it before any read."""
         rows = np.asarray(pad, np.int32)
         bt_rows = torch.as_tensor(self._bt_host[rows])
         counts = src["length"].to(torch.int32) + 1
@@ -784,6 +827,15 @@ class ServingEngine:
             np.asarray(r.output_tokens[: r.generated], np.int32),
         ])
 
+    def _written(self, r: Request, toks: np.ndarray) -> np.ndarray:
+        """What a prefill of `r` writes to the cache: `toks`, less the last
+        committed token on a recompute resume outside ``reference_decode``.
+        The next decode step writes that token at ``decode_length``, and a
+        recurrent state (ssm, hybrid) must not read it twice."""
+        if r.generated > 0 and not self.reference_decode:
+            return toks[:-1]
+        return toks
+
     def _frames_of(self, r: Request):
         """The request's encoder frames (None: zeros), for an
         encoder-decoder only."""
@@ -796,6 +848,7 @@ class ServingEngine:
 
     def _stage_prefill(self, r: Request) -> _StagedPrefill:
         toks = self._prompt_tokens(r)
+        written = self._written(r, toks)
         slot = self.kv.allocate(r)
         self.slot_req[slot] = r
         self._tick(self.lat.prefill_latency(len(toks)))
@@ -809,7 +862,7 @@ class ServingEngine:
             self.fluid.emit(r.fluid_idx, emit_t, 1)
             self.kv.grow(r)
             self.total_tokens += 1
-        return _StagedPrefill(r, slot, toks, emit_t, self._frames_of(r))
+        return _StagedPrefill(r, slot, written, emit_t, self._frames_of(r))
 
     # ------------------------------------------------------ chunked prefill
     def _should_chunk(self, r: Request) -> bool:
@@ -835,6 +888,7 @@ class ServingEngine:
         emit_t = None
         if r.prefill_cursor >= total:              # final chunk
             r.prefill_cursor = 0
+            prefix = self._written(r, toks)
             if self.obs is not None:
                 self.obs.prefill(r, self.now, total)
             if r.generated == 0:
@@ -871,9 +925,11 @@ class ServingEngine:
         if self.spec_k:
             # draft invariant committed[:-1]: the full staged context for
             # fresh prefills (their first token was committed at stage
-            # time), minus the trailing token on a recompute resume
+            # time), minus the trailing token on a recompute resume, which
+            # outside reference_decode the staged context already lacks
             n_draft = self.draft.prefill_batch(
-                slots, [rec.toks if rec.emit_t is not None else rec.toks[:-1]
+                slots, [rec.toks[:-1] if rec.emit_t is None
+                        and self.reference_decode else rec.toks
                         for rec in staged])
             self._dispatch("draft_prefill", n_draft)
             self._dispatch("write", n_draft)
@@ -901,8 +957,10 @@ class ServingEngine:
                     self._finish(r, t_held)
             return
         toks = self._prompt_tokens(r)
+        written = self._written(r, toks)
         sp = self.spans
-        call = self._prefill._begin_call((r.rid,), (len(toks),), len(toks))
+        call = self._prefill._begin_call((r.rid,), (len(written),),
+                                         len(written))
         tok = sp.begin("prefill.cache_init")
         kv_dtype = (self.cache["k"].dtype if "k" in self.cache
                     else self.cache["ssm_conv"].dtype)
@@ -912,29 +970,30 @@ class ServingEngine:
         sp.end(tok)
         tok = sp.begin("prefill.stage")
         dev = self.model.device
-        batch = {"tokens": torch.as_tensor(toks)[None].to(dev)}
+        batch = {"tokens": torch.as_tensor(written)[None].to(dev)}
         if enc_seq:
             batch["frames"] = frames_row(getattr(r, "frames", None), enc_seq,
                                          self.model.cfg.d_model)[None].to(dev)
         sp.end(tok)
         logits, one = self.model.prefill(self.params, batch, one)
-        self._prefill.note_shape((1, len(toks)))
+        self._prefill.note_shape((1, len(written)))
         self._dispatch("prefill")
         tok = sp.begin("prefill.write")
         slot = self.kv.allocate(r)
         if self.physical_pages:
             if r.generated == 0:
                 # own the page under position len(toks) now: the first
-                # emitted token's KV never lands there, so the decode
-                # window reads whatever this scatter leaves (zeros from the
-                # scratch row — the contiguous path's content)
+                # decode writes the first emitted token's KV there (under
+                # reference_decode it never lands there, and the decode
+                # window reads what this scatter leaves: zeros from the
+                # scratch row, the contiguous path's content)
                 self.kv.ensure_pages(r, len(toks) + 1)
             self._refresh_block_tables()
             self.page_scatters += 1
             self.cache = _paged_commit(
                 self.cache, torch.as_tensor(self._bt_host[[slot]]),
                 torch.zeros((1,), dtype=torch.int32), one["k"], one["v"],
-                torch.as_tensor([len(toks) + 1], dtype=torch.int32))
+                torch.as_tensor([len(written) + 1], dtype=torch.int32))
         else:
             self.cache = _write_slot(self.cache, one, slot)
         self._dispatch("write")
@@ -1106,19 +1165,21 @@ class ServingEngine:
         """`_make_spec_fused`'s round, run exactly `s` times (s a host int;
         the reference's device while_loop). Each round re-pins both caches'
         length gates as the host does between single rounds — the target
-        holds the committed context, the draft committed[:-1] — then
-        advances the committed length by accepted + 1 and feeds the
-        correction/bonus token to the next round's draft. Lengths, counts
-        and tokens stay on the device; returns the per-round windows,
-        greedy ids and accepted counts, (s, B, k+1) / (s, B)."""
+        at ``decode_length`` of the committed context, the draft at
+        committed[:-1] — then advances the committed length by accepted +
+        1 and feeds the correction/bonus token to the next round's draft.
+        Lengths, counts and tokens stay on the device; returns the
+        per-round windows, greedy ids and accepted counts, (s, B, k+1) /
+        (s, B)."""
         round_ = self._make_spec_fused()
+        lag = self._length_lag
 
         def fn(params, dparams, tokens, lengths, tcache, dcache, s):
             tok, ln = tokens, lengths
             ws, gs, accs = [], [], []
             for _ in range(s):
                 dcache = dict(dcache, length=torch.clamp(ln - 1, min=0))
-                tcache = dict(tcache, length=ln)
+                tcache = dict(tcache, length=torch.clamp(ln - lag, min=0))
                 window, greedy, accepted, tcache, dcache = round_(
                     params, dparams, tok, tcache, dcache)
                 tok = greedy.gather(1, accepted[:, None].long())[:, 0]
@@ -1188,7 +1249,7 @@ class ServingEngine:
             self._emit_burst(r, toks)
         return step_accepted
 
-    def _speculative_block(self, active, lengths, tokens, s: int,
+    def _speculative_block(self, active, ctx, tokens, s: int,
                            until: Optional[float]) -> int:
         """Run `s` speculative rounds in one dispatch and replay the
         acceptance-dependent clock on the host off one sync: round r's
@@ -1203,8 +1264,7 @@ class ServingEngine:
         # the block pins both caches' lengths itself, round by round
         W, G, A, self.cache, self.draft.cache = self._spec_block(
             self.params, self.draft.params, torch.as_tensor(tokens).to(dev),
-            torch.as_tensor(lengths).to(dev), self.cache, self.draft.cache,
-            s)
+            torch.as_tensor(ctx).to(dev), self.cache, self.draft.cache, s)
         self._dispatch("spec_block")
         n_w = W.numel()
         host = torch.cat([W.reshape(-1), G.reshape(-1),
@@ -1246,15 +1306,16 @@ class ServingEngine:
             self.obs.persistent_loop(self.now, s, s)
         return committed
 
-    def _speculative_iteration(self, active, lengths, tokens,
+    def _speculative_iteration(self, active, ctx, tokens,
                                total_ctx: int) -> None:
         """Draft-propose k tokens per running slot, verify the window in
         the target, commit the longest greedy-matching prefix plus the
-        correction/bonus token (lossless; 1..k+1 tokens per round)."""
+        correction/bonus token (lossless; 1..k+1 tokens per round). `ctx`:
+        each slot's committed context (the target's cache is pinned)."""
         k = self.spec_k
-        # the draft holds committed[:-1]: its next write goes one position
-        # below the target's
-        draft_lengths = np.maximum(lengths - 1, 0).astype(np.int32)
+        # the draft holds committed[:-1]: its next write goes to the last
+        # committed token's position
+        draft_lengths = np.maximum(ctx - 1, 0).astype(np.int32)
         dev = self.model.device
         span = self._begin_decode(1, len(active))
         if self.hotpath.fused_sampling:
@@ -1386,7 +1447,7 @@ class ServingEngine:
         span = self._begin_decode(j, len(active))
         ids, self.cache = self._decode_multi(
             self.params, torch.as_tensor(tokens).to(self.model.device),
-            self.cache, j)
+            self.cache, j, live=self._live_rows(len(active)))
         self._dispatch("decode_multi")
         ids = ids.cpu().numpy()                 # ONE sync for j iterations
         self._sync()
@@ -1404,7 +1465,8 @@ class ServingEngine:
         span = self._begin_decode(j, len(active))
         ids, self.cache, steps = self._decode_persist(
             self.params, torch.as_tensor(tokens).to(self.model.device),
-            self.cache, j, j_cap=self.hotpath.multi_step)
+            self.cache, j, j_cap=self.hotpath.multi_step,
+            live=self._live_rows(len(active)))
         self._dispatch("decode_persistent")
         ids = ids.cpu().numpy()                 # ONE sync for the block
         self._sync()
@@ -1512,29 +1574,35 @@ class ServingEngine:
         self.batch_sizes.append(len(active))
         committed_iters = 1
         if active:
+            # committed context per slot (the clock's price) and the
+            # length each row is pinned to (decode_length)
+            ctx = np.zeros(self.kv.num_slots, np.int32)
             lengths = np.zeros(self.kv.num_slots, np.int32)
             tokens = np.zeros(self.kv.num_slots, np.int32)
             for s, r in active.items():
-                lengths[s] = r.context_len
+                ctx[s] = r.context_len
+                lengths[s] = self.decode_length(r.context_len)
                 tokens[s] = r.output_tokens[-1] if r.output_tokens else 0
             self.cache = cache_lib.with_lengths(self.cache, lengths)
-            total_ctx = int(lengths.sum())
+            total_ctx = int(ctx.sum())
             if self.spec_k:
                 s_rounds = self._spec_block_plan(active)
                 if s_rounds > 1:
                     committed_iters = self._speculative_block(
-                        active, lengths, tokens, s_rounds, until)
+                        active, ctx, tokens, s_rounds, until)
                 else:
-                    self._speculative_iteration(active, lengths, tokens,
+                    self._speculative_iteration(active, ctx, tokens,
                                                 total_ctx)
             else:
                 j = self._multi_step_plan(active, total_ctx, until)
                 if self.physical_pages:
                     # pre-reserve every page the block will write (step s
-                    # writes position ctx+s), then pin the tables
+                    # writes position decode_length(ctx)+s), then pin the
+                    # tables
                     for _s, r in active.items():
                         self.kv.ensure_pages(
-                            r, min(r.context_len + j, self._cache_seq))
+                            r, min(self.decode_length(r.context_len) + j,
+                                   self._cache_seq))
                     self._refresh_block_tables()
                 if j > 1:
                     if self.hotpath.persistent:
@@ -1550,16 +1618,17 @@ class ServingEngine:
                 else:
                     span = self._begin_decode(1, len(active))
                     dev_tokens = torch.as_tensor(tokens).to(self.model.device)
+                    live = self._live_rows(len(active))
                     if self.hotpath.fused_sampling:
                         ids, self.cache = self._decode_tok(
-                            self.params, dev_tokens, self.cache)
+                            self.params, dev_tokens, self.cache, live=live)
                         self._dispatch("decode")
                         self._tick(self.lat.iter_latency(len(active),
                                                          total_ctx))
                         nxt = ids.cpu().numpy()
                     else:
                         logits, self.cache = self._decode(
-                            self.params, dev_tokens, self.cache)
+                            self.params, dev_tokens, self.cache, live=live)
                         self._dispatch("decode")
                         self._tick(self.lat.iter_latency(len(active),
                                                          total_ctx))

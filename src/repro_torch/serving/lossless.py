@@ -117,8 +117,9 @@ def _engine_logits(engine, prompt_tokens, prefix,
     prompt prefilled as the engine prefills it (padded to its length
     bucket, the padding's k/v left in the cache; at its exact length on
     the eager path), then one decode step per committed token with the
-    cache's length gate at the request's context length, as the engine's
-    decode pins it. The first emitted token's k/v is never written there
+    cache's length gate where the engine's decode pins it
+    (``ServingEngine.decode_length`` of the context length). Under
+    ``reference_decode`` the first emitted token's k/v is never written
     (its decode writes at len(prompt) + 1), so every decode attends what
     the prefill left at position len(prompt), which the exact-length path
     never sees.
@@ -148,7 +149,8 @@ def _engine_logits(engine, prompt_tokens, prefix,
     batch = _enc_batch(model, batch, frames, enc_seq)
     logits, cache = model.prefill(engine.params, batch, cache)
     for i, tok in enumerate(prefix):
-        cache = cache_lib.with_lengths(cache, [n + 1 + i])
+        cache = cache_lib.with_lengths(cache,
+                                       [engine.decode_length(n + 1 + i)])
         logits, cache = model.decode_step(
             engine.params, torch.as_tensor([int(tok)], dtype=torch.int32)
             .to(dev), cache)

@@ -105,7 +105,8 @@ def _torch_engine(arch):
     lat = LatencyModel(tm.cfg, TPU_V5E)
     sched = make_scheduler("andes", CAP, lat, SchedulerConfig(delta_t=DELTA_T))
     return ServingEngine(tm, tp, sched, lat, num_slots=4, max_seq=64,
-                         capacity_tokens=CAP, device="cpu")
+                         capacity_tokens=CAP, device="cpu",
+                         reference_decode=True)
 
 
 # ---------------------------------------------------------------------------
@@ -170,7 +171,7 @@ def _spec_engines(k=2):
         return ServingEngine(tm, tp, make_scheduler("andes", 160, lat), lat,
                              num_slots=3, max_seq=64, capacity_tokens=160,
                              draft_model=tm, draft_params=tp, spec_k=k,
-                             device="cpu")
+                             device="cpu", reference_decode=True)
 
     def ref():
         lat = JSpecLat(cfg, J_TPU_V5E, cfg, k=k)

@@ -92,7 +92,7 @@ def _port_cluster(arch, *, n_replicas=1, router="round_robin",
         sched_cfg=SchedulerConfig(delta_t=delta_t) if delta_t else None,
         backend_factory=engine_backend(tm, tp, num_slots=NUM_SLOTS,
                                        max_seq=MAX_SEQ, capacity_tokens=cap,
-                                       device="cpu")))
+                                       device="cpu", reference_decode=True)))
 
 
 def _ref_cluster(arch, *, n_replicas=1, router="round_robin",
@@ -120,7 +120,8 @@ def test_one_replica_engine_cluster_matches_bare_engine(arch):
     bare = ServingEngine(tm, tp, make_scheduler("andes", CAP, lat,
                                                 SchedulerConfig()),
                          lat, num_slots=NUM_SLOTS, max_seq=MAX_SEQ,
-                         capacity_tokens=CAP, device="cpu")
+                         capacity_tokens=CAP, device="cpu",
+                         reference_decode=True)
     out_bare = bare.run([r.clone() for r in wl], max_iterations=2000)
     cs = _port_cluster(arch)
     assert isinstance(cs.replicas[0].backend, ServingEngine)

@@ -281,19 +281,39 @@ def test_moe_ep_dtensor_entry_matches_local_entry():
 
     cfg = get_smoke_config("qwen2-moe-a2.7b")
     shape = debug_mesh_shape(1, 1)
-    mesh = dryrun.device_mesh(shape)
     params = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
-    placed = dryrun._map2(
-        lambda t, pl: distribute_tensor(t, mesh, list(pl)), params,
-        make_shardings(shape, param_specs(shape, params)))
     gen = torch.Generator().manual_seed(1)
     x = torch.randn(2, 8, cfg.d_model, generator=gen)
     valid = torch.arange(8)[None] < torch.tensor([8, 5])[:, None]
-    y0, a0 = moe_apply_ep(layer_params(params["blocks"], 0)["moe"], x, cfg,
-                          mesh, valid)
-    y1, a1 = moe_apply_ep(layer_params(placed["blocks"], 0)["moe"],
-                          distribute_tensor(x, mesh, [Replicate()] * 2),
-                          cfg, mesh, valid)
+    with dryrun.device_mesh(shape) as mesh:
+        placed = dryrun._map2(
+            lambda t, pl: distribute_tensor(t, mesh, list(pl)), params,
+            make_shardings(shape, param_specs(shape, params)))
+        y0, a0 = moe_apply_ep(layer_params(params["blocks"], 0)["moe"], x,
+                              cfg, mesh, valid)
+        y1, a1 = moe_apply_ep(layer_params(placed["blocks"], 0)["moe"],
+                              distribute_tensor(x, mesh, [Replicate()] * 2),
+                              cfg, mesh, valid)
     assert isinstance(y1, DTensor) and isinstance(a1, DTensor)
     assert torch.equal(y1.to_local(), y0)
     assert torch.equal(a1.to_local(), a0)
+
+
+def test_the_fake_group_lives_only_inside_the_block():
+    """The dry run's fake default group is up inside ``device_mesh`` and
+    gone after it, also when the block raises, so a later test of the
+    process can make a group of its own; inside another default group it
+    refuses to start."""
+    import torch.distributed as dist
+    shape = debug_mesh_shape(2, 2)
+    with dryrun.device_mesh(shape) as mesh:
+        assert dist.is_initialized() and dist.get_world_size() == 4
+        assert tuple(mesh.shape) == (2, 2)
+        with pytest.raises(RuntimeError, match="no default group"):
+            with dryrun.device_mesh(shape):
+                pass
+    assert not dist.is_initialized()
+    with pytest.raises(ValueError):
+        with dryrun.device_mesh(shape):
+            raise ValueError
+    assert not dist.is_initialized()

@@ -107,7 +107,8 @@ def _run_torch(arch, kw):
     lat = LatencyModel(tm.cfg, TPU_V5E)
     sched = make_scheduler("andes", CAP, lat, SchedulerConfig(delta_t=DELTA_T))
     eng = ServingEngine(tm, tp, sched, lat, num_slots=4, max_seq=MAX_SEQ,
-                        capacity_tokens=CAP, device="cpu", **kw)
+                        capacity_tokens=CAP, device="cpu",
+                        reference_decode=True, **kw)
     return eng.run(_trace(Request, QoESpec, tm.cfg, synthetic_frames),
                    max_iterations=4000), eng
 

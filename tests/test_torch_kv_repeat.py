@@ -246,7 +246,7 @@ def test_engine_at_repeat_2_matches_reference(kw):
     teng = ServingEngine(tm, tp, make_scheduler("andes", CAP, lat,
                                                 SchedulerConfig(delta_t=2.0)),
                          lat, num_slots=4, max_seq=64, capacity_tokens=CAP,
-                         device="cpu", **kw)
+                         device="cpu", reference_decode=True, **kw)
     tout = teng.run(_trace(Request, QoESpec, cfg.vocab_size),
                     max_iterations=4000)
     assert teng.preemptions > 0, "the trace must preempt"

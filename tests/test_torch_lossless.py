@@ -3,8 +3,8 @@
 ``serving.lossless.engine_margin`` replays a request along an engine's
 own layout at batch 1 — the prompt prefilled as the engine prefills it
 (padded to its length bucket, or at its exact length on the eager hot
-path), then one decode step per committed token at the engine's context
-length — and ``audit_flips(..., engine=)`` classifies flips by that
+path), then one decode step per committed token where the engine pins
+the row (``decode_length``) — and ``audit_flips(..., engine=)`` classifies flips by that
 margin. A referee is only as good as its replay, so here the port's
 engine and the JAX reference engine serve one trace at one slot (every
 prefill and decode at batch 1, the replay's shape) with capacity to
@@ -82,9 +82,10 @@ def _run_jax(jm, jp, cfg, eager):
                    max_iterations=4000)
 
 
-def _run_torch(tm, tp, eager, rows=None):
-    """The port's engine at one slot; with `rows`, the logits of every
-    prefill and decode call it makes are appended there, in order."""
+def _run_torch(tm, tp, eager, rows=None, reference=True):
+    """The port's engine at one slot, in the reference's decode layout
+    (`reference`) or its own; with `rows`, the logits of every prefill
+    and decode call it makes are appended there, in order."""
     lat = LatencyModel(tm.cfg, TPU_V5E)
     sched = make_scheduler("andes", CAP, lat, SchedulerConfig(delta_t=2.0))
     if rows is not None:
@@ -97,7 +98,8 @@ def _run_torch(tm, tp, eager, rows=None):
     try:
         eng = ServingEngine(tm, tp, sched, lat, num_slots=1, max_seq=64,
                             capacity_tokens=CAP,
-                            hotpath=_hot(HotpathConfig, eager), device="cpu")
+                            hotpath=_hot(HotpathConfig, eager), device="cpu",
+                            reference_decode=reference)
         out = eng.run(_trace(Request, QoESpec, tm.cfg.vocab_size),
                       max_iterations=4000)
     finally:
@@ -122,6 +124,23 @@ def test_replay_reproduces_both_engines(models, eager):
     seen = iter(rows)
     for r in sorted(tout, key=lambda r: r.emit_times[0]):
         assert r.generated == OUT_LEN
+        for p, tok in enumerate(r.output_tokens):
+            row = _engine_logits(eng, r.prompt_tokens, r.output_tokens[:p])
+            assert torch.equal(row, next(seen)), (r.rid, p)
+            assert int(torch.argmax(row)) == tok, (r.rid, p)
+
+
+@pytest.mark.parametrize("eager", [False, True], ids=["bucketed", "eager"])
+def test_replay_follows_the_default_engines_layout(models, eager):
+    """The engine's own decode layout (each row pinned at its last
+    committed position): the replay's logits are still the engine's,
+    bitwise, at every emitted position."""
+    _, _, _, tm, tp = models
+    rows = []
+    out, eng = _run_torch(tm, tp, eager, rows, reference=False)
+    assert eng.decode_length(10) == 9
+    seen = iter(rows)
+    for r in sorted(out, key=lambda r: r.emit_times[0]):
         for p, tok in enumerate(r.output_tokens):
             row = _engine_logits(eng, r.prompt_tokens, r.output_tokens[:p])
             assert torch.equal(row, next(seen)), (r.rid, p)

@@ -87,7 +87,8 @@ def _run_torch(tm, tp, kw):
     lat = LatencyModel(tm.cfg, TPU_V5E)
     sched = make_scheduler("andes", CAP, lat, SchedulerConfig(delta_t=DELTA_T))
     eng = ServingEngine(tm, tp, sched, lat, num_slots=4, max_seq=64,
-                        capacity_tokens=CAP, device="cpu", **kw)
+                        capacity_tokens=CAP, device="cpu",
+                        reference_decode=True, **kw)
     return eng.run(_trace(Request, QoESpec, tm.cfg.vocab_size),
                    max_iterations=4000), eng
 

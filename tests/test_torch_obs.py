@@ -91,7 +91,8 @@ def _torch_engine(tm, tp, **kw):
     lat = LatencyModel(tm.cfg, TPU_V5E)
     sched = make_scheduler("andes", CAP, lat, SchedulerConfig(delta_t=DELTA_T))
     return ServingEngine(tm, tp, sched, lat, num_slots=4, max_seq=64,
-                         capacity_tokens=CAP, device="cpu", **kw)
+                         capacity_tokens=CAP, device="cpu",
+                         reference_decode=True, **kw)
 
 
 def _fingerprint(reqs):
@@ -235,7 +236,8 @@ def test_spec_engine_observed_matches_reference(models):
             return ServingEngine(
                 tm, tp, make_scheduler("andes", 160, lat), lat,
                 num_slots=3, max_seq=64, capacity_tokens=160,
-                draft_model=tm, draft_params=tp, spec_k=2, device="cpu")
+                draft_model=tm, draft_params=tp, spec_k=2, device="cpu",
+                reference_decode=True)
         lat = JSpecLat(cfg, J_TPU_V5E, cfg, k=2)
         return JEngine(jm, jp, j_make_scheduler("andes", 160, lat), lat,
                        num_slots=3, max_seq=64, capacity_tokens=160,

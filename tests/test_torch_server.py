@@ -227,7 +227,7 @@ def _port_engine(params, clock="virtual", hw=TPU_V5E, num_slots=4,
     sched = make_scheduler("andes", num_slots * max_seq, lat)
     eng = ServingEngine(Model(cfg, device="cpu"), params, sched, lat,
                         num_slots=num_slots, max_seq=max_seq, clock=clock,
-                        device="cpu")
+                        device="cpu", reference_decode=True)
     return cfg, eng
 
 

@@ -172,6 +172,66 @@ def test_decode_and_swap_spans(model):
                                                 if r.preemptions}
 
 
+def test_decode_block_payload_carries_the_batch_width(model):
+    """Every decode block names the batch width its decode computed: every
+    slot, whatever the live count."""
+    eng = _engine(model, cap=4096)
+    eng.run(_decoding_trace(model[0].cfg.vocab_size), max_iterations=4000)
+    blocks = _named(eng.spans, "engine.decode_block")
+    assert blocks
+    assert all(b.payload["slots"] == eng.kv.num_slots == 4 for b in blocks)
+    assert any(b.payload["rows"] < b.payload["slots"] for b in blocks)
+
+
+@pytest.fixture(scope="module")
+def moe_model():
+    tm = Model(get_smoke_config("qwen2-moe-a2.7b"), device="cpu")
+    return tm, tm.init(torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("reference", [False, True],
+                         ids=["live", "reference"])
+def test_moe_decode_counters(moe_model, reference):
+    """``moe.routed_slots`` counts live tokens x top-k and
+    ``moe.expert_rows`` experts x capacity, over every layer of every
+    decode step a block ran: one slot per live row and expert by
+    default; every slot, under the capacity over the batch, in the
+    reference setting."""
+    from repro_torch.models.moe import capacity
+    tm = moe_model[0]
+    m, L = tm.cfg.moe, tm.cfg.num_layers
+    eng = _engine(moe_model, cap=4096, reference_decode=reference)
+    eng.run(_decoding_trace(tm.cfg.vocab_size), max_iterations=4000)
+    pays = [b.payload for b in _named(eng.spans, "engine.decode_block")]
+    assert any(p["j"] > 1 for p in pays)
+    c = eng.spans.counters
+    if reference:
+        rows = [p["slots"] for p in pays]
+        caps = [capacity(p["slots"], tm.cfg) for p in pays]
+    else:
+        rows = caps = [p["rows"] for p in pays]
+    assert c["moe.routed_slots"] == L * m.top_k * sum(
+        p["j"] * n for p, n in zip(pays, rows))
+    assert c["moe.expert_rows"] == L * m.num_experts * sum(
+        p["j"] * n for p, n in zip(pays, caps))
+    assert c["moe.routed_slots"] < c["moe.expert_rows"]
+
+
+@pytest.mark.parametrize("which", ["dense", "moe"])
+def test_the_decode_fix_adds_no_host_sync(model, moe_model, which):
+    """The default engine and the reference setting sync with the host and
+    dispatch to the device as often, step for step."""
+    m = model if which == "dense" else moe_model
+    vocab = m[0].cfg.vocab_size
+    a, b = (_engine(m, reference_decode=r) for r in (False, True))
+    a.run(_decoding_trace(vocab), max_iterations=4000)
+    b.run(_decoding_trace(vocab), max_iterations=4000)
+    assert a.iterations == b.iterations
+    assert a.host_syncs == b.host_syncs > 0
+    assert a.dispatches == b.dispatches
+    assert a.hotpath_stats() == b.hotpath_stats()
+
+
 def _fingerprint(reqs):
     return [(r.rid, tuple(r.output_tokens), tuple(r.emit_times),
              r.preemptions) for r in sorted(reqs, key=lambda r: r.rid)]

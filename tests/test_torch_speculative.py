@@ -144,7 +144,7 @@ def torch_spec_engine(draft, k, *, sched="andes", cap=CAP, **kw):
     return ServingEngine(tm, s["tp"], make_scheduler(
         sched, cap, lat, SchedulerConfig(delta_t=DELTA_T)), lat,
         capacity_tokens=cap, draft_model=dm, draft_params=dp, spec_k=k,
-        device="cpu", **kw)
+        device="cpu", reference_decode=True, **kw)
 
 
 def torch_base_engine(*, sched="andes", cap=CAP, **kw):
@@ -155,7 +155,7 @@ def torch_base_engine(*, sched="andes", cap=CAP, **kw):
     kw.setdefault("max_seq", 64)
     return ServingEngine(tm, s["tp"], make_scheduler(
         sched, cap, lat, SchedulerConfig(delta_t=DELTA_T)), lat,
-        capacity_tokens=cap, device="cpu", **kw)
+        capacity_tokens=cap, device="cpu", reference_decode=True, **kw)
 
 
 def run_jax(eng, **tr):

@@ -69,12 +69,14 @@ def _fleets(kind):
     jdm, jdp = s["drafts"]["perturbed"][0]
     common = dict(num_slots=4, max_seq=64, capacity_tokens=FLEET_CAP)
     tspec = speculative_backend(s["tm"], s["tp"], dm, dp, spec_k=2,
-                                device="cpu", **common)
+                                device="cpu", reference_decode=True,
+                                **common)
     jspec = j_speculative_backend(s["jm"], s["jp"], jdm, jdp, spec_k=2,
                                   **common)
     if kind == "mixed":
         tspec = mixed_backends([tspec, engine_backend(
-            s["tm"], s["tp"], device="cpu", **common)])
+            s["tm"], s["tp"], device="cpu", reference_decode=True,
+            **common)])
         jspec = j_mixed_backends([jspec, j_engine_backend(
             s["jm"], s["jp"], **common)])
     port = ClusterSimulator(LatencyModel(s["tm"].cfg, TPU_V5E), ClusterConfig(

@@ -98,7 +98,7 @@ def _run_torch(tm, tp, kw, hot):
     eng = ServingEngine(tm, tp, sched, lat, num_slots=4, max_seq=64,
                         capacity_tokens=CAP,
                         hotpath=_hotpath(HotpathConfig, hot), device="cpu",
-                        **kw)
+                        reference_decode=True, **kw)
     return eng.run(_trace(Request, QoESpec, cfg.vocab_size),
                    max_iterations=4000), eng
 
